@@ -1,0 +1,12 @@
+"""speech2text_torch: the PyTorch + CUDA (Hopper, sm_90a) port of
+speech2text_tpu.
+
+The JAX package beside it is the reference this port is held against
+(tests/test_torch_*.py). This package imports torch, numpy and the
+standard library only: never jax, flax or speech2text_tpu.
+
+Covered so far: zipformer pruned-RNN-T greedy serving
+(`serve.RnntServer`), with hand-written CUDA kernels for the log-mel
+fbank (`ops/fbank.py`, `csrc/fbank.cu`) and the zipformer attention
+weights (`ops/attn_weights.py`, `csrc/attn_weights.cu`).
+"""

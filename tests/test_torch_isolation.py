@@ -1,0 +1,74 @@
+"""The port stands alone: it imports neither jax nor speech2text_tpu, and
+its kernel wrappers never compute a CUDA tensor on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from speech2text_torch.data.frontend import Fbank
+from speech2text_torch.ops import attn_weights, build, fbank
+
+PKG = Path(__file__).resolve().parents[1] / "speech2text_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "speech2text_tpu")
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import speech2text_torch, speech2text_torch.serve, "
+        "speech2text_torch.convert\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=PKG.parent, timeout=120)
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_cuda_tensors_take_the_kernel(monkeypatch, tmp_path):
+    """A CUDA tensor is routed to the kernel, never to the plain version;
+    with no build and no nvcc the wrapper raises."""
+    assert build.use_kernel(torch.device("cuda")) is True
+    assert build.use_kernel(torch.device("cpu")) is False
+    with pytest.raises(ValueError):
+        build.use_kernel(torch.device("meta"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    kernel = build.CudaKernel("attn_weights", "attn_weights.cu")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.lib()
+    if torch.cuda.is_available():
+        monkeypatch.setattr(attn_weights, "KERNEL", kernel)
+        monkeypatch.setattr(fbank, "KERNEL",
+                            build.CudaKernel("fbank", "fbank.cu"))
+        x = torch.zeros((1, 8, 1, attn_weights.KERNEL_QD), device="cuda")
+        p = torch.zeros((15, 1, attn_weights.KERNEL_QD), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            attn_weights.zip_weights(x, x, x, p, w_dtype=torch.float32)
+        fb = Fbank().to("cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fb(torch.zeros((1, 800), device="cuda"),
+               torch.tensor([800], device="cuda"))
+    assert kernel.launches == 0
