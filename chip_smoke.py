@@ -4,24 +4,42 @@
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-with DIR   # also time an earlier port
 
 Phases (any failed check raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      no CUDA device → exit 1 with no result;
   2. build both CUDA kernels from speech2text_torch/csrc (nvcc, sm_90a);
   3. attention-weights kernel vs its plain version at every flagship stack
-     shape for B=16 and 10 s, bf16 and f32, mask None / ragged pad / chunk;
-  4. fbank kernel vs its plain version at B=16, ragged 2-10 s, N % 160 != 0;
+     shape for B=16 and 10 s, bf16 and f32, mask None / ragged pad / chunk,
+     and at a 30 s utterance;
+  4. fbank kernel vs its plain version at B=16, ragged 2-10 s,
+     N % 160 != 0: white noise in the log domain, band-limited audio with
+     silence in the linear mel domain, silent frames exactly log(FLT_EPSILON);
   5. serve the flagship (configs/inference/pruned_rnnt_greedy_search.yaml,
      seeded random weights, bf16): 3 requests of B=16 int16 PCM, with one
      attention-weights launch per layer (12) and 1 fbank launch per
      request; then one f32 request (B=2, 3 s) on the card against the
      same module on the CPU;
-  6. timings (CUDA events, medians) beside each kernel's bound.
+  6. where a request's time goes, and one profiled request, from which
+     each attention-weights launch's device time is read by stack shape;
+timings beside each kernel's bound (phases 3-4). A kernel's time is device
+time: the median duration of the kernels of its name in a torch.profiler
+trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
+wrapper's host time per call (perf_counter, synchronised before each call)
+is reported apart as host_ms.
+With --compare-with DIR, DIR is the speech2text_torch package of an earlier
+commit (for example unpacked with `git archive <commit> speech2text_torch`
+into a directory that .gitignore lists). Its public entry points
+(ops.attn_weights.zip_weights, ops.fbank.fbank) build its kernels from
+DIR/csrc at first use; they are timed in turns with this tree's (earlier,
+this, this, earlier) at every main-path shape, with their host times.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import importlib
+import importlib.util
 import json
 import math
 import os
@@ -45,6 +63,12 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 BF16_ROUND_TOL = dict(rtol=2.0 ** -8 + 1e-5, atol=1e-6)
 ROW_SUM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 FBANK_TOL = dict(rtol=1e-4, atol=1e-3)
+# Band-limited audio leaves mel bands with ~1e-7 of a frame's energy: both
+# the FFT and the DFT product hold them as rounding noise, so their logs may
+# differ by more than 1e-3. They are compared as linear mel, within 1e-5 of
+# the frame's mel energy and 1e-4 relative.
+BAND_REL_TOL = 1e-4
+BAND_ENERGY_TOL = 1e-5
 ENC_TOL = dict(rtol=1e-3, atol=1e-3)
 CFG = "configs/inference/pruned_rnnt_greedy_search.yaml"
 
@@ -59,22 +83,6 @@ def card_line():
 
 def log(msg, card=None):
     print(msg + (f"  [{card}]" if card else ""), flush=True)
-
-
-def time_ms(fn, iters=20, warmup=3):
-    """Median of per-call times on CUDA events, ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def check_close(name, got, want, rtol, atol):
@@ -131,64 +139,56 @@ def attn_bound_ms(B, T, H, qd, pd, in_dtype, out_dtype, has_mask):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def stack_shapes(cfg, n_samples):
-    from speech2text_torch.data.frontend import FbankConfig
-    frames = FbankConfig().num_frames(n_samples)
-    T0 = ((frames - 2 - 3) // 2 + 1) - 2
-    return [(-(-T0 // ds), H) for ds, H in zip(cfg["downsampling_factor"],
-                                               cfg["num_heads"])]
-
-
 def phase_attn(enc_cfg, card, report):
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops.masking import chunk_causal_mask
+    from speech2text_torch.tools.timing import (attn_inputs, device_ms,
+                                                events_ms, host_ms,
+                                                pad_mask_of, stack_shapes)
     qd, pd = enc_cfg["query_head_dim"], enc_cfg["pos_head_dim"]
     shapes = stack_shapes(enc_cfg, 10 * SR)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
+    name = aw.KERNEL.name
     errs = {}
     timing = {}
     for T, H in sorted(set(shapes)):
         B = B_SERVE
-        lens = torch.as_tensor(rng.integers(T // 5, T + 1, B))
-        lens[0] = T
-        pad = torch.arange(T)[None] < lens[:, None]
-        pad_mask = (pad[:, None, :] & pad[:, :, None]).cuda()
+        pad_mask = pad_mask_of(rng, B, T)
         chunk_mask = (pad_mask & chunk_causal_mask(T, 16, 4,
                                                    device="cuda")[None])
         for dt in (torch.bfloat16, torch.float32):
-            q, k = (torch.randn((B, T, H, qd), generator=gen, device="cuda")
-                    .to(dt) for _ in range(2))
-            qp = torch.randn((B, T, H, pd), generator=gen,
-                             device="cuda").to(dt)
-            p = torch.randn((2 * T - 1, H, pd), generator=gen,
-                            device="cuda").to(dt)
+            q, k, qp, p = attn_inputs(gen, B, T, H, qd, pd, dt)
             for mname, mask in (("none", None), ("pad", pad_mask),
                                 ("chunk16/4", chunk_mask)):
                 got = aw.attn_weights_cuda(q, k, qp, p, mask, dt)
-                e = check_weights(f"attn_weights T={T} H={H} {dt} {mname}",
-                                  got, q, k, qp, p, mask, dt)
-                errs[(T, H, str(dt), mname)] = e
-                if mname == "pad":
-                    k_ms = time_ms(lambda: aw.attn_weights_cuda(
-                        q, k, qp, p, mask, dt))
-                    p_ms = time_ms(lambda: aw.attn_weights_plain(
-                        q, k, qp, p, mask, dt), iters=10)
-                    bound, by = attn_bound_ms(B, T, H, qd, pd, dt, dt, True)
-                    timing[(T, H, dt)] = (k_ms, p_ms, bound, by)
-                    log(f"attn_weights B={B} T={T} H={H} {str(dt)[6:]} pad "
-                        f"mask: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                        f"bound {bound:.4f} ms ({by}), max abs err {e:.3g}",
-                        card)
-    # a 30 s utterance: stack 0's T no longer fits 32 score rows in shared
-    # memory, so the kernel takes smaller query tiles
+                errs[(T, H, str(dt), mname)] = check_weights(
+                    f"attn_weights T={T} H={H} {dt} {mname}", got,
+                    q, k, qp, p, mask, dt)
+            if dt != torch.bfloat16:
+                continue
+            ms = device_ms(lambda: aw.attn_weights_cuda(
+                q, k, qp, p, pad_mask, dt), name)
+            # the same call without a mask: what the mask path costs
+            nomask_ms = device_ms(lambda: aw.attn_weights_cuda(
+                q, k, qp, p, None, dt), name)
+            h_ms = host_ms(lambda: aw.attn_weights_cuda(
+                q, k, qp, p, pad_mask, dt))
+            p_ms = events_ms(lambda: aw.attn_weights_plain(
+                q, k, qp, p, pad_mask, dt), iters=10)
+            bound, by = attn_bound_ms(B, T, H, qd, pd, dt, dt, True)
+            timing[(T, H)] = dict(ms=ms, ms_no_mask=nomask_ms, host_ms=h_ms,
+                                  plain_ms=p_ms, bound_ms=bound, bound_by=by)
+            log(f"attn_weights B={B} T={T} H={H} bf16 pad mask: device "
+                f"{ms:.4f} ms (no mask {nomask_ms:.4f}), "
+                f"{B * H * T * T / ms / 1e6:.1f} weights/ns, wrapper "
+                f"host {h_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"{100 * bound / ms:.1f}% of bound, max abs err "
+                f"{errs[(T, H, str(dt), 'pad')]:.3g}", card)
+    # a 30 s utterance: stack 0's T=1495 (the table window grows with T)
     T, H = stack_shapes(enc_cfg, 30 * SR)[0]
-    q, k = (torch.randn((2, T, H, qd), generator=gen, device="cuda")
-            .to(torch.bfloat16) for _ in range(2))
-    qp = torch.randn((2, T, H, pd), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    p = torch.randn((2 * T - 1, H, pd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+    q, k, qp, p = attn_inputs(gen, 2, T, H, qd, pd, torch.bfloat16)
     pad = torch.arange(T, device="cuda")[None] < torch.tensor(
         [[T], [T // 3]], device="cuda")
     mask = pad[:, None, :] & pad[:, :, None]
@@ -198,34 +198,59 @@ def phase_attn(enc_cfg, card, report):
         q, k, qp, p, mask, torch.bfloat16)
     report["attn_weights_checks"] = {"/".join(map(str, k)): v
                                      for k, v in errs.items()}
+    report["attn_weights_timing"] = {f"T={T},H={H}": v
+                                     for (T, H), v in timing.items()}
     # the main path: one launch per layer, bf16, pad mask
-    per_req = [timing[(T, H, torch.bfloat16)]
+    per_req = [timing[(T, H)]
                for (T, H), n in zip(shapes, enc_cfg["num_encoder_layers"])
                for _ in range(n)]
-    summary = {
-        "ms": sum(t[0] for t in per_req),
-        "plain_ms": sum(t[1] for t in per_req),
-        "bound_ms": sum(t[2] for t in per_req),
-        "bound_by": ("bytes" if sum(t[2] for t in per_req if t[3] == "bytes")
-                     >= sum(t[2] for t in per_req) / 2 else "operations"),
-        "max_abs_err": max(errs.values()),
-    }
+    total = {key: sum(t[key] for t in per_req)
+             for key in ("ms", "host_ms", "plain_ms", "bound_ms")}
+    summary = dict(total, max_abs_err=max(errs.values()), bound_by=(
+        "bytes" if sum(t["bound_ms"] for t in per_req
+                       if t["bound_by"] == "bytes") >= total["bound_ms"] / 2
+        else "operations"))
     log(f"attn_weights per request ({len(per_req)} launches, B=16, 10 s, "
-        f"bf16): kernel "
-        f"{summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms, bound "
-        f"{summary['bound_ms']:.4f} ms ({summary['bound_by']})", card)
-    return summary
+        f"bf16): device {summary['ms']:.4f} ms, wrapper host "
+        f"{summary['host_ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms, "
+        f"bound {summary['bound_ms']:.4f} ms ({summary['bound_by']})", card)
+    return summary, timing
 
 
 # ------------------------------------------------------------ phase 4: B2
+def band_limited_pcm(rng, B, N):
+    """Four sines below 4 kHz per utterance with a stretch of silence."""
+    t = np.arange(N) / SR
+    x = np.zeros((B, N))
+    for b in range(B):
+        for _ in range(4):
+            x[b] += rng.uniform(0.05, 0.3) * np.sin(
+                2 * np.pi * rng.uniform(100, 3900) * t
+                + rng.uniform(0, 2 * np.pi))
+        a = rng.integers(0, N // 2)
+        x[b, a:a + rng.integers(N // 8, N // 3)] = 0.0
+    return x.astype(np.float32)
+
+
+def fbank_fft_flops(frames, flen, n_mels, n_weights):
+    """Operations of the FFT kernel: per frame the DC sum, preemphasis and
+    window (4 per sample), 4 radix-4 stages of 64 butterflies (8 complex
+    adds and 3 complex multiplies: 34 each), the split into 257 bins (19
+    each), the mel runs (2 per weight) and the log (1 per mel)."""
+    return frames * (4 * flen + 4 * 64 * 34 + 19 * 257 + 2 * n_weights
+                     + n_mels)
+
+
 def phase_fbank(card, report):
     from speech2text_torch.data.frontend import Fbank
     from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.tools.timing import device_ms, events_ms, host_ms
     rng = np.random.default_rng(SEED + 1)
     N = 10 * SR + 77                        # N % 160 != 0
     lens = ragged_lengths(rng, B_SERVE, 2, 10, N)
+    beyond = np.arange(N)[None] >= lens[:, None]
     pcm = (0.2 * rng.standard_normal((B_SERVE, N))).astype(np.float32)
-    pcm[np.arange(N)[None] >= lens[:, None]] = 0.0
+    pcm[beyond] = 0.0
     fbank = Fbank().cuda()
     x = torch.from_numpy(pcm).cuda()
     cfg = fbank.cfg
@@ -238,21 +263,54 @@ def phase_fbank(card, report):
     torch.cuda.synchronize()
     assert got.shape == (B_SERVE, T, cfg.num_mel_bins)
     err = check_close("fbank", got, want, **FBANK_TOL)
-    k_ms = time_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw))
-    p_ms = time_ms(lambda: fb.fbank_plain(x, *ops, T, **kw))
-    flen, n_bins, n_mels = cfg.frame_length, ops[1].shape[1], \
-        cfg.num_mel_bins
-    nbytes = 4 * (B_SERVE * N + B_SERVE * T * n_mels + flen
-                  + 2 * flen * n_bins + n_mels * n_bins)
-    flops = B_SERVE * T * (4 * flen * n_bins + 2 * n_bins * n_mels)
+
+    # band-limited audio with silence, in the linear mel domain
+    band = band_limited_pcm(rng, B_SERVE, N)
+    band[beyond] = 0.0
+    xb = torch.from_numpy(band).cuda()
+    got_b = fb.fbank_cuda(xb, *ops, T, **kw)
+    want_b = fb.fbank_plain(xb, *ops, T, **kw)
+    lin, want_lin = got_b.exp(), want_b.exp()
+    energy = want_lin.sum(-1, keepdim=True)
+    excess = ((lin - want_lin).abs()
+              - (BAND_ENERGY_TOL * energy + BAND_REL_TOL * want_lin))
+    assert bool((excess <= 0).all()), \
+        f"fbank band-limited: {int((excess > 0).sum())} mel values out of " \
+        f"tolerance"
+    band_err = float(((lin - want_lin).abs() / energy).max())
+    silent = (fb.frame_signal(xb, T, cfg.frame_length, cfg.frame_shift)
+              == 0).all(-1)
+    floor = float(np.log(np.float32(fb.EPSILON)))
+    assert int(silent.sum()) > 0 and bool((got_b[silent] == floor).all()), \
+        "silent frames do not give exactly log(FLT_EPSILON)"
+    log(f"fbank band-limited B={B_SERVE}: max |mel - plain| "
+        f"{band_err:.3g} of the frame's mel energy (tol {BAND_ENERGY_TOL}), "
+        f"{int(silent.sum())} silent frames exactly log(FLT_EPSILON)", card)
+
+    _, _, weights = fb.fft_operands(*ops[1:])
+    k_ms = device_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw), fb.KERNEL.name)
+    h_ms = host_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw))
+    p_ms = events_ms(lambda: fb.fbank_plain(x, *ops, T, **kw))
+    flen, n_mels, n_w = cfg.frame_length, cfg.num_mel_bins, weights.numel()
+    nbytes = 4 * (B_SERVE * N + B_SERVE * T * n_mels + flen + 2 * fb.N_FFT
+                  + 3 * n_mels + n_w)
+    flops = fbank_fft_flops(B_SERVE * T, flen, n_mels, n_w)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    summary = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+    n_bins = fb.N_FFT // 2 + 1
+    dft_flops = B_SERVE * T * (4 * flen * n_bins + 2 * n_bins * n_mels)
+    summary = {"ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "max_abs_err": err}
-    log(f"fbank B={B_SERVE} N={N} frames={T}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, bound {summary['bound_ms']:.4f} ms "
-        f"({summary['bound_by']}, {flops / 1e9:.3f} GFLOP f32), max abs err "
+               "max_abs_err": err, "band_limited_err_of_energy": band_err,
+               "fft_gflop": flops / 1e9,
+               "dft_product_bound_ms": dft_flops / PEAK_FLOPS[torch.float32]
+               * 1e3}
+    log(f"fbank B={B_SERVE} N={N} frames={T}: device {k_ms:.4f} ms, "
+        f"wrapper host {h_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {summary['bound_ms']:.4f} ms ({summary['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP f32), "
+        f"{100 * summary['bound_ms'] / k_ms:.1f}% of bound, max abs err "
         f"{err:.3g}", card)
     report["fbank"] = summary
     return summary
@@ -271,9 +329,14 @@ def requests(rng, n_req, B, lo_s, hi_s):
     return out
 
 
-def phase_breakdown(server, reqs, card, report):
+def phase_breakdown(server, reqs, layer_shapes, card, report):
     """Where a request's time goes: featurize / encode / decode on the
-    host clock (synchronised), and one profiled request's device time."""
+    host clock (synchronised), and one profiled request's device time,
+    with each kernel launch's duration (attention weights by the (T, H)
+    of its layer, `layer_shapes` in launch order)."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.tools.timing import kernel_durations_ms
     parts = {"featurize": [], "encode": [], "decode": []}
     for pcm, lens in reqs:
         t0 = time.perf_counter()
@@ -316,12 +379,28 @@ def phase_breakdown(server, reqs, card, report):
     else:
         log("profiled request: device time not measured (no CUDA events "
             "in the trace)", card)
+    b1 = kernel_durations_ms(prof, aw.KERNEL.name)
+    b2 = kernel_durations_ms(prof, fb.KERNEL.name)
+    served = {}
+    if len(b1) == len(layer_shapes) and len(b2) == 1:
+        for (T, H), ms in zip(layer_shapes, b1):
+            served.setdefault(f"T={T},H={H}", []).append(ms)
+        log("profiled request, kernel device ms: attn_weights " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.4f}" for x in v)
+            for k, v in served.items()) + f" (sum {sum(b1):.4f}); fbank "
+            f"{b2[0]:.4f}", card)
+    else:   # the tracer dropped a record: launches cannot be told apart
+        log(f"profiled request: per-launch kernel times not measured (the "
+            f"trace holds {len(b1)} of {len(layer_shapes)} attention-weights "
+            f"and {len(b2)} of 1 fbank records)", card)
     report["breakdown"] = {"median_ms": med, "profiled_wall_ms": wall,
                            "device_busy_ms": busy,
+                           "attn_weights_served_ms": served,
+                           "fbank_served_ms": b2,
                            "top_device_ops": rows[:20]}
 
 
-def phase_serve(card, report):
+def phase_serve(layer_shapes, card, report):
     from speech2text_torch.config import load_config
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import fbank as fb
@@ -371,7 +450,7 @@ def phase_serve(card, report):
     report["serve"] = {"latency_ms": lat, "median_ms": med,
                        "utt_per_s": B_SERVE / med * 1e3,
                        "launches_per_request": per_req}
-    phase_breakdown(server, reqs, card, report)
+    phase_breakdown(server, reqs, layer_shapes, card, report)
     del server
     torch.cuda.empty_cache()
 
@@ -402,7 +481,98 @@ def phase_serve(card, report):
     return launches
 
 
-def main():
+# ------------------------------------------------------------ compare
+def load_earlier(pkg_dir):
+    """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
+    speech2text_torch package at `pkg_dir`, imported as the package
+    `earlier_speech2text_torch` (registered in sys.modules, as its modules'
+    relative imports require)."""
+    name = "earlier_speech2text_torch"
+    pkg_dir = os.path.abspath(pkg_dir)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg_dir, "__init__.py"),
+        submodule_search_locations=[pkg_dir])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module(name + ".ops.attn_weights"),
+            importlib.import_module(name + ".ops.fbank"))
+
+
+def in_turns(earlier, this, name):
+    """Device times of two calls in turns: earlier, this, this, earlier."""
+    from speech2text_torch.tools.timing import device_ms
+    t = [device_ms(f, name) for f in (earlier, this, this, earlier)]
+    return {"prev_ms": [t[0], t[3]], "this_ms": [t[1], t[2]]}
+
+
+def phase_compare(prev_dir, enc_cfg, card, report):
+    """The earlier package's public entry points against this tree's, on
+    the same inputs: device time in turns and wrapper host time."""
+    from speech2text_torch.data.frontend import Fbank
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.tools.timing import (attn_inputs, host_ms,
+                                                pad_mask_of, stack_shapes)
+    paw, pfb = load_earlier(prev_dir)
+    qd, pd = enc_cfg["query_head_dim"], enc_cfg["pos_head_dim"]
+    shapes = stack_shapes(enc_cfg, 10 * SR)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    dt = torch.bfloat16
+    rows = {}
+    t0 = time.perf_counter()
+    for T, H in sorted(set(shapes)):
+        mask = pad_mask_of(rng, B_SERVE, T)
+        q, k, qp, p = attn_inputs(gen, B_SERVE, T, H, qd, pd, dt)
+        args = (q, k, qp, p, mask, dt)
+        r = in_turns(lambda: paw.zip_weights(*args),
+                     lambda: aw.zip_weights(*args), aw.KERNEL.name)
+        r["prev_host_ms"] = host_ms(lambda: paw.zip_weights(*args))
+        r["this_host_ms"] = host_ms(lambda: aw.zip_weights(*args))
+        rows[f"attn_weights T={T} H={H}"] = r
+    per_req = [rows[f"attn_weights T={T} H={H}"] for (T, H), n in
+               zip(shapes, enc_cfg["num_encoder_layers"]) for _ in range(n)]
+
+    fbank = Fbank().cuda()
+    cfg = fbank.cfg
+    N = 10 * SR + 77
+    x = torch.from_numpy((0.2 * rng.standard_normal((B_SERVE, N)))
+                         .astype(np.float32)).cuda()
+    args = (x, fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks,
+            cfg.num_frames(N), cfg.frame_length, cfg.frame_shift,
+            cfg.preemphasis, cfg.remove_dc_offset)
+    r = in_turns(lambda: pfb.fbank(*args), lambda: fb.fbank(*args),
+                 fb.KERNEL.name)
+    r["prev_host_ms"] = host_ms(lambda: pfb.fbank(*args))
+    r["this_host_ms"] = host_ms(lambda: fb.fbank(*args))
+    rows[f"fbank B={B_SERVE} frames={cfg.num_frames(N)}"] = r
+    log(f"compare with {prev_dir}: {time.perf_counter() - t0:.1f} s, the "
+        f"earlier kernels' build included")
+    for name, r in rows.items():
+        log(f"compare {name}: earlier kernel {r['prev_ms'][0]:.4f} / "
+            f"{r['prev_ms'][1]:.4f} ms, this {r['this_ms'][0]:.4f} / "
+            f"{r['this_ms'][1]:.4f} ms (device, in turns); wrapper host "
+            f"earlier {r['prev_host_ms']:.4f} ms, this "
+            f"{r['this_host_ms']:.4f} ms", card)
+    req = {key: sum(statistics.mean(r[key]) if isinstance(r[key], list)
+                    else r[key] for r in per_req)
+           for key in ("prev_ms", "this_ms", "prev_host_ms", "this_host_ms")}
+    log(f"compare attn_weights per request ({len(per_req)} launches): "
+        f"earlier {req['prev_ms']:.4f} ms, this {req['this_ms']:.4f} ms "
+        f"device; wrapper host earlier {req['prev_host_ms']:.4f} ms, this "
+        f"{req['this_host_ms']:.4f} ms", card)
+    report["compare"] = {"prev_dir": prev_dir, "rows": rows,
+                         "attn_weights_per_request": req}
+
+
+def main(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare-with", metavar="DIR", default=None,
+                    help="an earlier speech2text_torch package to time "
+                         "against this tree's kernels")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -411,6 +581,7 @@ def main():
     from speech2text_torch.ops import build
     from speech2text_torch.ops import fbank as fb
     from speech2text_torch.serve import serving_train_config
+    from speech2text_torch.tools.timing import stack_shapes
 
     card = card_line()
     log(card)
@@ -429,23 +600,29 @@ def main():
 
     report = {"card": card}
     enc_cfg = serving_train_config(load_config(CFG))["encoder"]["config"]
-    attn = phase_attn(enc_cfg, card, report)
+    attn, _ = phase_attn(enc_cfg, card, report)
     fbank = phase_fbank(card, report)
-    launches = phase_serve(card, report)
+    layer_shapes = [
+        shape for shape, n in zip(stack_shapes(enc_cfg, 10 * SR),
+                                  enc_cfg["num_encoder_layers"])
+        for _ in range(n)]
+    launches = phase_serve(layer_shapes, card, report)
+    if args.compare_with:
+        phase_compare(args.compare_with, enc_cfg, card, report)
 
     kernels = [
         dict(name="attn_weights", route="cuda",
              source="speech2text_torch/csrc/attn_weights.cu",
              replaces="speech2text_tpu/ops/pallas/flash_attn.py:79",
              launches=launches["attn_weights"], library_ms=None,
-             **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by")}),
+             **{k: attn[k] for k in ("max_abs_err", "ms", "host_ms",
+                                     "plain_ms", "bound_ms", "bound_by")}),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
              launches=launches["fbank"], library_ms=None,
-             **{k: fbank[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")}),
+             **{k: fbank[k] for k in ("max_abs_err", "ms", "host_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}),
     ]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} never launched on the path"
@@ -463,4 +640,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

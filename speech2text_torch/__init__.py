@@ -8,5 +8,6 @@ standard library only: never jax, flax or speech2text_tpu.
 Covered so far: zipformer pruned-RNN-T greedy serving
 (`serve.RnntServer`), with hand-written CUDA kernels for the log-mel
 fbank (`ops/fbank.py`, `csrc/fbank.cu`) and the zipformer attention
-weights (`ops/attn_weights.py`, `csrc/attn_weights.cu`).
+weights (`ops/attn_weights.py`, `csrc/attn_weights.cu`). `tools/` holds
+the measurement helpers for the card: kernel timing and ablations.
 """

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fbank import fbank
+from ..ops.fbank import dft_matrices, fbank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,11 +118,7 @@ def make_mel_banks(cfg: FbankConfig) -> np.ndarray:
 def make_dft_matrices(cfg: FbankConfig) -> Tuple[np.ndarray, np.ndarray]:
     """Real DFT as two (frame_length, n_fft//2+1) matrices; the zero
     padding to n_fft is folded in (only the first frame_length rows)."""
-    n_fft = cfg.padded_window_size
-    k = np.arange(n_fft // 2 + 1)
-    n = np.arange(cfg.frame_length)
-    ang = -2.0 * np.pi * np.outer(n, k) / n_fft
-    return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
+    return dft_matrices(cfg.frame_length, cfg.padded_window_size)
 
 
 class Fbank(nn.Module):

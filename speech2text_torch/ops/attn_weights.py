@@ -2,7 +2,8 @@
 
 `zip_weights` dispatches on the queries' device: a CPU tensor takes
 `attn_weights_plain`, a CUDA tensor launches csrc/attn_weights.cu or
-raises. The plain version mirrors
+raises (bf16: the tensor-core kernel, f32: the f32-FMA kernel). The
+plain version mirrors
 speech2text_tpu/ops/pallas/flash_attn.py:xla_weights (without the
 const-row option, which only training uses): scores in f32 from bf16 or
 f32 inputs, clip to ±100, masked scores set to −1e30, row softmax in f32,
@@ -19,11 +20,15 @@ from typing import Optional
 
 import torch
 
-from .build import CudaKernel, ptr, stream_handle, use_kernel
+from .build import (CudaKernel, on_device, ptr, ready, stream_handle,
+                    use_kernel)
 
 NEG = -1e30
-KERNEL = CudaKernel("attn_weights", "attn_weights.cu")
+ENTRY = "attn_weights_forward"
+KERNEL = CudaKernel("attn_weights", "attn_weights.cu", entries={
+    ENTRY: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]})
 KERNEL_QD = 32       # the flagship's query_head_dim, the one variant built
+KERNEL_PD_BF16 = 4   # the bf16 (tensor-core) kernel's pos_head_dim
 
 
 def attn_weights_plain(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,
@@ -61,26 +66,21 @@ def attn_weights_cuda(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,
         raise ValueError(f"attention-weight kernel takes bf16 or f32 "
                          f"inputs and writes their dtype, got {q.dtype} "
                          f"→ {w_dtype}")
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16 and pd != KERNEL_PD_BF16:
+        raise ValueError(f"the bf16 attention-weight kernel takes "
+                         f"pd={KERNEL_PD_BF16}, got {pd}")
     dev = q.device
-
-    def prep(t):
-        t = t.to(device=dev, dtype=q.dtype).contiguous()
-        return t if t.data_ptr() % 16 == 0 else t.clone()
-
-    q, k, qp, p = (prep(t) for t in (q, k, qp, p))
+    q, k, qp, p = (ready(t, dev, q.dtype) for t in (q, k, qp, p))
     if mask is not None:
         if mask.shape != (B, T, T):
             raise ValueError(f"mask {mask.shape} is not {(B, T, T)}")
-        mask = mask.to(device=dev, dtype=torch.bool).contiguous()
+        mask = ready(mask, dev, torch.bool)
     out = torch.empty((B, H, T, T), dtype=w_dtype, device=dev)
-    fn = KERNEL.lib().attn_weights_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = KERNEL.entry(ENTRY)
+    with on_device(dev):
         rc = fn(ptr(q), ptr(k), ptr(qp), ptr(p), ptr(mask), ptr(out),
-                B, T, H, qd, pd, int(q.dtype == torch.bfloat16),
-                stream_handle(dev))
+                B, T, H, qd, pd, int(is_bf16), stream_handle(dev))
     KERNEL.check(rc)
     return out
 

@@ -14,13 +14,14 @@ raises. Nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -61,12 +62,17 @@ def find_nvcc() -> str:
 class CudaKernel:
     """One kernel source, its built library, and its launch count.
 
-    `launches` is a plain integer that the kernel's wrapper increments
-    once per successful launch and nowhere else."""
+    `entries` maps each exported C function to its ctypes argument types;
+    they are bound once, when the library is loaded, and every such
+    function returns an int (a cudaError_t). `launches` is a plain integer
+    that the kernel's wrapper increments once per successful launch and
+    nowhere else."""
 
-    def __init__(self, name: str, source: str):
+    def __init__(self, name: str, source: str,
+                 entries: Optional[Dict[str, Sequence]] = None):
         self.name = name
         self.source = PACKAGE_DIR / "csrc" / source
+        self.entries = dict(entries or {})
         self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -83,7 +89,15 @@ class CudaKernel:
             err = self._lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            for fname, argtypes in self.entries.items():
+                fn = getattr(self._lib, fname)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         return self._lib
+
+    def entry(self, fname: str):
+        """The bound C function `fname` (argument types set at load)."""
+        return getattr(self.lib(), fname)
 
     def check(self, rc: int) -> None:
         """Raise on a non-zero cudaError_t returned by a launch; count the
@@ -122,9 +136,28 @@ def build(kernels: List[CudaKernel]) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def stream_handle(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def on_device(device: torch.device):
+    """A context that makes `device` current, entered only where it is not
+    current already (the entry points pass tensors of one card)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
-def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def ready(t: torch.Tensor, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """`t` as the kernels take it: on `device`, in `dtype`, contiguous and
+    16-byte aligned; copied only where it is not so already."""
+    if t.device != device or t.dtype != dtype:
+        t = t.to(device=device, dtype=dtype)
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()

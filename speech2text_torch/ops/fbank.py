@@ -2,21 +2,31 @@
 
 `fbank` dispatches on the PCM's device: a CPU tensor takes `fbank_plain`,
 a CUDA tensor launches csrc/fbank.cu (snip_edges framing only) or
-raises. `fbank_plain` mirrors speech2text_tpu/data/frontend.py:_fbank_impl
-(without dither: the port serves, it does not train), including both
-framings of `frame_signal`.
+raises. The kernel takes the power spectrum by a 512-point FFT, which is
+the transform the DFT matrices hold, and the mel projection over each
+filter's run of non-zero bins (`mel_runs`). `fbank_plain` mirrors
+speech2text_tpu/data/frontend.py:_fbank_impl (without dither: the port
+serves, it does not train), including both framings of `frame_signal`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
-from .build import CudaKernel, ptr, stream_handle, use_kernel
+from .build import (CudaKernel, on_device, ptr, ready, stream_handle,
+                    use_kernel)
 
 EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, kaldi's log floor
-KERNEL = CudaKernel("fbank", "fbank.cu")
+N_FFT = 512                       # the kernel's real FFT size
+ENTRY = "fbank_forward"
+KERNEL = CudaKernel("fbank", "fbank.cu", entries={
+    ENTRY: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]})
 
 
 def frame_signal(pcm: torch.Tensor, max_frames: int, frame_length: int,
@@ -60,37 +70,104 @@ def fbank_plain(pcm: torch.Tensor, window: torch.Tensor,
     return torch.log(torch.clamp(mel, min=EPSILON))
 
 
+def mel_runs(banks: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Each filter's run of bins from its first to its last non-zero
+    weight: runs (n_mels, 3) int32 = first bin, number of bins, offset into
+    `weights`, and weights f32, the runs one after another. A filter with
+    no non-zero weight gets an empty run."""
+    runs = np.zeros((banks.shape[0], 3), np.int32)
+    pieces = []
+    off = 0
+    for m, row in enumerate(banks):
+        nz = np.flatnonzero(row)
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        runs[m] = (lo, hi - lo, off)
+        pieces.append(row[lo:hi])
+        off += hi - lo
+    weights = np.concatenate(pieces).astype(np.float32) if off else \
+        np.zeros(1, np.float32)
+    return runs, weights
+
+
+def twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft, 2) f32 rows (cos, −sin)(2πk/n_fft), built in float64."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def dft_matrices(frame_length: int, n_fft: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The (frame_length, n_fft//2+1) cos/sin matrices of the n_fft-point
+    DFT of a frame zero-padded to n_fft, built in float64, stored as f32."""
+    ang = -2.0 * np.pi * np.outer(np.arange(frame_length),
+                                  np.arange(n_fft // 2 + 1)) / n_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+# id(banks) → (weak reference to banks, versions, operands); an entry goes
+# when its banks tensor does
+_OPERANDS: Dict[int, tuple] = {}
+
+
+def fft_operands(dft_cos: torch.Tensor, dft_sin: torch.Tensor,
+                 banks: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(twiddles, runs, weights) on the banks' device for the FFT kernel,
+    made once per banks tensor (and again if it, or a DFT matrix, is
+    modified). Raises unless dft_cos/dft_sin are the N_FFT-point DFT the
+    kernel computes."""
+    versions = (banks._version, dft_cos.data_ptr(), dft_cos._version,
+                dft_sin.data_ptr(), dft_sin._version)
+    hit = _OPERANDS.get(id(banks))
+    if hit is not None and hit[0]() is banks and hit[1] == versions:
+        return hit[2]
+    flen = dft_cos.shape[0]
+    want = dft_matrices(flen, N_FFT)
+    if not all(np.array_equal(m.detach().cpu().numpy(), w)
+               for m, w in zip((dft_cos, dft_sin), want)):
+        raise ValueError(f"the fbank kernel computes the {N_FFT}-point DFT; "
+                         f"dft_cos/dft_sin are another transform")
+    runs, weights = mel_runs(banks.detach().cpu().numpy())
+    dev = banks.device
+    ops = (torch.from_numpy(twiddles(N_FFT)).to(dev),
+           torch.from_numpy(runs).to(dev), torch.from_numpy(weights).to(dev))
+    key = id(banks)
+    _OPERANDS[key] = (weakref.ref(banks, lambda _: _OPERANDS.pop(key, None)),
+                      versions, ops)
+    return ops
+
+
 def fbank_cuda(pcm: torch.Tensor, window: torch.Tensor,
                dft_cos: torch.Tensor, dft_sin: torch.Tensor,
                banks: torch.Tensor, max_frames: int, frame_length: int = 400,
                frame_shift: int = 160, preemph: float = 0.97,
                remove_dc: bool = True) -> torch.Tensor:
-    """Launch csrc/fbank.cu on CUDA tensors (snip_edges framing)."""
+    """Launch csrc/fbank.cu on CUDA tensors (snip_edges framing, a
+    512-point DFT: frame_length <= 512 and 257 bins)."""
     B, N = pcm.shape
     n_bins = dft_cos.shape[1]
     n_mels = banks.shape[0]
     if max_frames < 1 or (max_frames - 1) * frame_shift + frame_length > N:
         raise ValueError(f"{max_frames} frames do not fit {N} samples")
-    if frame_length > 512 or n_bins > 288:
-        raise ValueError(f"fbank kernel takes frame_length <= 512 and "
-                         f"<= 288 bins, got {frame_length}, {n_bins}")
+    if frame_length > N_FFT or n_bins != N_FFT // 2 + 1:
+        raise ValueError(f"fbank kernel takes frame_length <= {N_FFT} and "
+                         f"{N_FFT // 2 + 1} bins, got {frame_length}, "
+                         f"{n_bins}")
     if dft_cos.shape != (frame_length, n_bins) or \
             dft_sin.shape != dft_cos.shape or banks.shape[1] != n_bins \
             or window.shape != (frame_length,):
         raise ValueError("fbank operand shapes disagree")
     dev = pcm.device
-    args = [a.to(device=dev, dtype=torch.float32).contiguous()
-            for a in (pcm, window, dft_cos, dft_sin, banks)]
+    tw, runs, weights = fft_operands(dft_cos, dft_sin, banks)
+    if runs.device != dev:
+        tw, runs, weights = (t.to(dev) for t in (tw, runs, weights))
+    pcm, window = (ready(t, dev, torch.float32) for t in (pcm, window))
     out = torch.empty((B, max_frames, n_mels), dtype=torch.float32,
                       device=dev)
-    fn = KERNEL.lib().fbank_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*[ptr(a) for a in args], ptr(out), B, N, max_frames,
-                frame_length, frame_shift, n_bins, n_mels, preemph,
-                int(remove_dc), EPSILON, stream_handle(dev))
+    fn = KERNEL.entry(ENTRY)
+    with on_device(dev):
+        rc = fn(ptr(pcm), ptr(window), ptr(tw), ptr(runs), ptr(weights),
+                ptr(out), B, N, max_frames, frame_length, frame_shift,
+                n_mels, preemph, int(remove_dc), EPSILON, stream_handle(dev))
     KERNEL.check(rc)
     return out
 

@@ -91,3 +91,20 @@ def test_clip_before_mask():
                        None, jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["bf16_pd8", "mask_shape", "qd16",
+                                  "dtype_pair"])
+def test_cuda_wrapper_rejects_unsupported(case):
+    """The kernel wrapper raises on what the kernels do not take, before
+    anything is built or launched."""
+    from speech2text_torch.ops.attn_weights import attn_weights_cuda
+    qd = 16 if case == "qd16" else 32
+    pd = 8 if case == "bf16_pd8" else 4
+    q, k, qp, p = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(B=1, T=5, H=1, qd=qd, pd=pd))
+    w_dtype = torch.float32 if case == "dtype_pair" else torch.bfloat16
+    mask = torch.ones((1, 5, 4), dtype=torch.bool) \
+        if case == "mask_shape" else None
+    with pytest.raises(ValueError):
+        attn_weights_cuda(q, k, qp, p, mask, w_dtype)

@@ -12,14 +12,107 @@ from speech2text_tpu.data import frontend as jf
 from speech2text_tpu.ops.pallas.fbank_kernel import (build_operands,
                                                      fbank_pallas)
 from speech2text_torch.data import frontend as tf
+from speech2text_torch.ops import fbank as tfb
 from speech2text_torch.ops.fbank import fbank_plain
 
 JNP_TOL = dict(rtol=1e-4, atol=1e-3)
 NUMPY_TOL = dict(rtol=1e-3, atol=1e-2)
+# Band-limited audio leaves mel bands with ~1e-7 of a frame's energy: both
+# the FFT and the DFT product hold them as rounding noise, so their logs
+# may differ by more than 1e-3. Compare linear mel instead, within 1e-5 of
+# the frame's mel energy (the two routes differ by ~6e-7 of it on this
+# input) and 1e-4 relative.
+BAND_REL_TOL = 1e-4
+BAND_ENERGY_TOL = 1e-5
 
 
 def _pcm(rng, B, N):
     return (0.2 * rng.standard_normal((B, N))).astype(np.float32)
+
+
+def band_limited_pcm(rng, B, N, sr=16000):
+    """Four sines below 4 kHz per utterance with a stretch of silence."""
+    t = np.arange(N) / sr
+    x = np.zeros((B, N))
+    for b in range(B):
+        for _ in range(4):
+            x[b] += rng.uniform(0.05, 0.3) * np.sin(
+                2 * np.pi * rng.uniform(100, 3900) * t
+                + rng.uniform(0, 2 * np.pi))
+        a = rng.integers(0, N // 2)
+        x[b, a:a + rng.integers(N // 8, N // 3)] = 0.0
+    return x.astype(np.float32)
+
+
+def _fft_route(pcm, fbank, T):
+    """The FFT kernel's algorithm in PyTorch: the power spectrum of the
+    frame zero-padded to 512 samples by torch.fft.rfft (a check of the
+    algorithm, not the kernel's FFT), the mel projection over each
+    filter's run of bins."""
+    cfg = fbank.cfg
+    fr = tfb.frame_signal(pcm, T, cfg.frame_length, cfg.frame_shift)
+    fr = fr - fr.mean(dim=-1, keepdim=True)
+    fr = fr - cfg.preemphasis * torch.cat([fr[..., :1], fr[..., :-1]], -1)
+    spec = torch.fft.rfft(fr * fbank.window, n=tfb.N_FFT)
+    power = spec.real.square() + spec.imag.square()
+    runs, w = tfb.mel_runs(fbank.banks.numpy())
+    mel = torch.stack([(power[..., lo:lo + n] * torch.from_numpy(w[o:o + n]))
+                       .sum(-1) for lo, n, o in runs], dim=-1)
+    return torch.log(torch.clamp(mel, min=tfb.EPSILON))
+
+
+@pytest.mark.parametrize("signal", ["white", "band_limited"])
+def test_fft_route_matches_dft_product(rng, signal):
+    """The power spectrum by a 512-point FFT and the mel sum over runs
+    give fbank_plain's DFT product within the kernel's tolerance; frames
+    of silence give exactly log(FLT_EPSILON)."""
+    N = 16077
+    pcm = _pcm(rng, 2, N) if signal == "white" else \
+        band_limited_pcm(rng, 2, N)
+    fbank = tf.Fbank()
+    T = fbank.cfg.num_frames(N)
+    x = torch.from_numpy(pcm)
+    want = fbank_plain(x, fbank.window, fbank.dft_cos, fbank.dft_sin,
+                       fbank.banks, T)
+    got = _fft_route(x, fbank, T)
+    if signal == "white":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **JNP_TOL)
+        return
+    lin, want_lin = got.exp(), want.exp()
+    energy = want_lin.sum(-1, keepdim=True)
+    assert bool(((lin - want_lin).abs() <= BAND_ENERGY_TOL * energy
+                 + BAND_REL_TOL * want_lin).all())
+    silent = (tfb.frame_signal(x, T, 400, 160) == 0).all(-1)
+    assert int(silent.sum()) > 0
+    assert bool((got[silent] == want[silent]).all())
+    assert bool((want[silent] == np.float32(np.log(np.float32(tfb.EPSILON))))
+                .all())
+
+
+@pytest.mark.parametrize("kw", [{}, {"num_mel_bins": 40,
+                                     "window_type": "hamming"},
+                                {"low_freq": 300.0, "high_freq": -600.0}])
+def test_mel_runs_cover_banks(rng, kw):
+    """Each filter's run holds every non-zero of its row of `banks`, and a
+    sequential f32 sum over the run equals the dense sequential sum bit
+    for bit (adding x * 0 leaves the sum as it is)."""
+    banks = tf.make_mel_banks(tf.FbankConfig(**kw))
+    runs, w = tfb.mel_runs(banks)
+    assert runs.shape == (banks.shape[0], 3)
+    covered = np.zeros_like(banks, bool)
+    for m, (lo, n, off) in enumerate(runs):
+        covered[m, lo:lo + n] = True
+        np.testing.assert_array_equal(w[off:off + n], banks[m, lo:lo + n])
+    assert not (banks[~covered] != 0).any()
+    power = (rng.random((64, banks.shape[1])) ** 4).astype(np.float32)
+    dense = np.zeros((64, banks.shape[0]), np.float32)
+    for j in range(banks.shape[1]):
+        dense += power[:, j:j + 1] * banks[:, j]
+    restricted = np.zeros_like(dense)
+    for m, (lo, n, off) in enumerate(runs):
+        for j in range(n):
+            restricted[:, m] += power[:, lo + j] * w[off + j]
+    np.testing.assert_array_equal(restricted, dense)
 
 
 def test_builders_match():
@@ -100,3 +193,26 @@ def test_global_cmvn(rng, tmp_path):
                                atol=1e-6)
     np.testing.assert_array_equal(GlobalCmvn()(torch.from_numpy(feats)),
                                   feats)
+
+
+def test_fft_operands_made_once_and_checked():
+    """The FFT kernel's operands are made once per banks tensor, and DFT
+    matrices of another size than the kernel's 512 points are refused."""
+    fbank = tf.Fbank()
+    ops = tfb.fft_operands(fbank.dft_cos, fbank.dft_sin, fbank.banks)
+    assert ops[0].shape == (tfb.N_FFT, 2) and ops[1].shape == (80, 3)
+    again = tfb.fft_operands(fbank.dft_cos, fbank.dft_sin, fbank.banks)
+    assert all(a is b for a, b in zip(ops, again))
+    banks = fbank.banks.clone()
+    tfb.fft_operands(fbank.dft_cos, fbank.dft_sin, banks)
+    key = id(banks)
+    assert key in tfb._OPERANDS
+    del banks                       # the entry goes with its tensor
+    assert key not in tfb._OPERANDS
+    other = tf.Fbank(tf.FbankConfig(sample_rate=8000))   # 256-point DFT
+    with pytest.raises(ValueError):
+        tfb.fft_operands(other.dft_cos, other.dft_sin, fbank.banks)
+    np.testing.assert_allclose(
+        ops[0].numpy()[:, 0] + 1j * ops[0].numpy()[:, 1],
+        np.exp(-2j * np.pi * np.arange(tfb.N_FFT) / tfb.N_FFT),
+        rtol=0, atol=1e-7)

@@ -326,3 +326,38 @@ def test_encoder_flagship_dims_b1():
     want, _ = _apply(jm, params, x, lens)
     _close(got, want, rtol=1e-3, atol=1e-3)
 
+
+
+def test_encoder_flagship_dims_bf16_b1():
+    """Flagship widths and depth in bf16 at B=1 on 1 s of features: the
+    port's bf16 output is no further (RMS over the output) from the f32
+    output than JAX's bf16 output is. Both sides score in f32 (the port's
+    plain weights always do; JAX with use_flash_attn=False,
+    score_dtype="float32"). A fixed bound would not do: at random init,
+    bf16 rounding through 12 layers moves JAX's own output by ~0.16 RMS
+    on outputs of ~0.9 RMS."""
+    cfg = dataclasses.asdict(tz.Zipformer2Config(causal=True))
+    tm = tz.Zipformer2(tz.Zipformer2Config(**cfg)).eval()
+    init_parameters(tm, torch.Generator().manual_seed(0))
+    tb = tz.Zipformer2(tz.Zipformer2Config(**dict(cfg, dtype="bfloat16")))
+    tb.load_state_dict(tm.state_dict())
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 100, 80)).astype(np.float32)
+    lens = np.array([100], np.int32)
+    params = to_flax(tm)
+    want32, _ = _apply(jz.Zipformer2(jz.Zipformer2Config(**cfg)), params,
+                       x, lens)
+    jax16, _ = _apply(jz.Zipformer2(jz.Zipformer2Config(
+        **dict(cfg, dtype="bfloat16", use_flash_attn=False,
+               score_dtype="float32"))), params, x, lens)
+    with torch.no_grad():
+        got, _ = tb.eval()(torch.from_numpy(x), torch.from_numpy(lens))
+    assert got.shape == want32.shape
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    want32 = np.asarray(want32, np.float32)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a))))
+
+    assert rms(got - want32) <= rms(np.asarray(jax16, np.float32) - want32)
