@@ -23,7 +23,22 @@ Phases (any failed check raises and the script exits non-zero):
      same module on the CPU;
   6. where a request's time goes, and one profiled request, from which
      each attention-weights launch's device time is read by stack shape;
-timings beside each kernel's bound (phases 3-4). A kernel's time is device
+  7. (training a) kernel B1's gradient (autograd.Function, backward in
+     plain torch) at the four flagship stack shapes, bf16 and f32: the
+     kernel-fed backward against the same backward fed by the plain
+     forward's weights and against autograd through the plain f32 forward
+     (every |score| < 100 there); then both kernels and B1's backward
+     timed at the training shapes (B=128, 10 s) against their bounds;
+  8. (training b) one f32 train step of the flagship dims (dropout off,
+     chunk fixed, B=2, 2-3 s) on the card and on the CPU from the same
+     weights: losses, gradients and updated parameters;
+  9. (training c) the flagship train step at bench.py's shape (bf16,
+     B=128 x 10 s, U=48, vocab 128, the YAML's dropout, feature mask and
+     chunk sampling, ScaledAdam + Eden): one warm-up step, 5 timed steps
+     with 12 attention-weights and 1 fbank launches each, finite losses,
+     changed parameters, peak memory, and one profiled step split into its
+     phases with the device busy share;
+timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
 wrapper's host time per call (perf_counter, synchronised before each call)
@@ -34,6 +49,9 @@ into a directory that .gitignore lists). Its public entry points
 (ops.attn_weights.zip_weights, ops.fbank.fbank) build its kernels from
 DIR/csrc at first use; they are timed in turns with this tree's (earlier,
 this, this, earlier) at every main-path shape, with their host times.
+The kernels' record holds the training path's numbers (phase 9's launches,
+phase 7's times at its shapes) and, under "serve", the serving path's
+(phase 5's launches, phases 3-4's times per request).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -71,6 +89,23 @@ BAND_REL_TOL = 1e-4
 BAND_ENERGY_TOL = 1e-5
 ENC_TOL = dict(rtol=1e-3, atol=1e-3)
 CFG = "configs/inference/pruned_rnnt_greedy_search.yaml"
+TRAIN_CFG = "configs/training/zipformer_stateless_pruned_rnnt.yaml"
+B_TRAIN, TRAIN_SECS, TRAIN_U = 128, 10, 48        # bench.py's shape
+TRAIN_STEPS = 5
+# B1's gradient, as max |got - want| over max |want| per tensor: f32 at
+# the rtol of the CPU tests; bf16 at JAX's bf16 tolerance
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# f32 train step, card vs CPU: losses within rtol 1e-4; each gradient
+# within 1e-3 of its largest entry (summation order, cuDNN's convolution
+# algorithms); each parameter within rtol 1e-4 / atol 1e-6 plus what the
+# two gradients' difference moves ScaledAdam's first step by (its
+# g/(|g|+eps) flips with the sign of a near-zero gradient)
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+STEP_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+# the key biases' gradient (exactly 0 in exact arithmetic), against the key
+# weights' largest gradient entry
+SHIFT_FREE_TOL = 1e-3
 
 
 def card_line():
@@ -139,17 +174,57 @@ def attn_bound_ms(B, T, H, qd, pd, in_dtype, out_dtype, has_mask):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attn_timing(q, k, qp, p, mask, card, err):
+    """Device time of the B1 kernel on these inputs (with and without the
+    mask), the wrapper's host time, the plain version's time, the bound."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.tools.timing import device_ms, events_ms, host_ms
+    B, T, H, qd = q.shape
+    pd, dt = qp.shape[-1], q.dtype
+    name = aw.KERNEL.name
+    ms = device_ms(lambda: aw.attn_weights_cuda(q, k, qp, p, mask, dt), name)
+    # the same call without a mask: what the mask path costs
+    nomask_ms = device_ms(lambda: aw.attn_weights_cuda(q, k, qp, p, None,
+                                                       dt), name)
+    h_ms = host_ms(lambda: aw.attn_weights_cuda(q, k, qp, p, mask, dt))
+    p_ms = events_ms(lambda: aw.attn_weights_plain(q, k, qp, p, mask, dt),
+                     iters=10)
+    bound, by = attn_bound_ms(B, T, H, qd, pd, dt, dt, True)
+    log(f"attn_weights B={B} T={T} H={H} {dt} pad mask: device "
+        f"{ms:.4f} ms (no mask {nomask_ms:.4f}), "
+        f"{B * H * T * T / ms / 1e6:.1f} weights/ns, wrapper "
+        f"host {h_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        f"{100 * bound / ms:.1f}% of bound, max abs err {err:.3g}", card)
+    return dict(ms=ms, ms_no_mask=nomask_ms, host_ms=h_ms, plain_ms=p_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def per_layer_sum(timing, shapes, enc_cfg, keys):
+    """Per-shape timings summed over the encoder's layers (one B1 launch
+    each), with the bound's kind that holds most of the summed bound."""
+    per = [timing[(T, H)]
+           for (T, H), n in zip(shapes, enc_cfg["num_encoder_layers"])
+           for _ in range(n)]
+    total = {key: sum(t[key] for t in per) for key in keys}
+    total["layers"] = len(per)
+    if "bound_ms" in keys:
+        total["bound_by"] = (
+            "bytes" if sum(t["bound_ms"] for t in per
+                           if t["bound_by"] == "bytes")
+            >= total["bound_ms"] / 2 else "operations")
+    return total
+
+
 def phase_attn(enc_cfg, card, report):
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops.masking import chunk_causal_mask
-    from speech2text_torch.tools.timing import (attn_inputs, device_ms,
-                                                events_ms, host_ms,
-                                                pad_mask_of, stack_shapes)
+    from speech2text_torch.tools.timing import (attn_inputs, pad_mask_of,
+                                                stack_shapes)
     qd, pd = enc_cfg["query_head_dim"], enc_cfg["pos_head_dim"]
     shapes = stack_shapes(enc_cfg, 10 * SR)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    name = aw.KERNEL.name
     errs = {}
     timing = {}
     for T, H in sorted(set(shapes)):
@@ -165,27 +240,9 @@ def phase_attn(enc_cfg, card, report):
                 errs[(T, H, str(dt), mname)] = check_weights(
                     f"attn_weights T={T} H={H} {dt} {mname}", got,
                     q, k, qp, p, mask, dt)
-            if dt != torch.bfloat16:
-                continue
-            ms = device_ms(lambda: aw.attn_weights_cuda(
-                q, k, qp, p, pad_mask, dt), name)
-            # the same call without a mask: what the mask path costs
-            nomask_ms = device_ms(lambda: aw.attn_weights_cuda(
-                q, k, qp, p, None, dt), name)
-            h_ms = host_ms(lambda: aw.attn_weights_cuda(
-                q, k, qp, p, pad_mask, dt))
-            p_ms = events_ms(lambda: aw.attn_weights_plain(
-                q, k, qp, p, pad_mask, dt), iters=10)
-            bound, by = attn_bound_ms(B, T, H, qd, pd, dt, dt, True)
-            timing[(T, H)] = dict(ms=ms, ms_no_mask=nomask_ms, host_ms=h_ms,
-                                  plain_ms=p_ms, bound_ms=bound, bound_by=by)
-            log(f"attn_weights B={B} T={T} H={H} bf16 pad mask: device "
-                f"{ms:.4f} ms (no mask {nomask_ms:.4f}), "
-                f"{B * H * T * T / ms / 1e6:.1f} weights/ns, wrapper "
-                f"host {h_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-                f"{100 * bound / ms:.1f}% of bound, max abs err "
-                f"{errs[(T, H, str(dt), 'pad')]:.3g}", card)
+            if dt == torch.bfloat16:
+                timing[(T, H)] = attn_timing(q, k, qp, p, pad_mask, card,
+                                             errs[(T, H, str(dt), "pad")])
     # a 30 s utterance: stack 0's T=1495 (the table window grows with T)
     T, H = stack_shapes(enc_cfg, 30 * SR)[0]
     q, k, qp, p = attn_inputs(gen, 2, T, H, qd, pd, torch.bfloat16)
@@ -201,17 +258,11 @@ def phase_attn(enc_cfg, card, report):
     report["attn_weights_timing"] = {f"T={T},H={H}": v
                                      for (T, H), v in timing.items()}
     # the main path: one launch per layer, bf16, pad mask
-    per_req = [timing[(T, H)]
-               for (T, H), n in zip(shapes, enc_cfg["num_encoder_layers"])
-               for _ in range(n)]
-    total = {key: sum(t[key] for t in per_req)
-             for key in ("ms", "host_ms", "plain_ms", "bound_ms")}
-    summary = dict(total, max_abs_err=max(errs.values()), bound_by=(
-        "bytes" if sum(t["bound_ms"] for t in per_req
-                       if t["bound_by"] == "bytes") >= total["bound_ms"] / 2
-        else "operations"))
-    log(f"attn_weights per request ({len(per_req)} launches, B=16, 10 s, "
-        f"bf16): device {summary['ms']:.4f} ms, wrapper host "
+    summary = per_layer_sum(timing, shapes, enc_cfg,
+                            ("ms", "host_ms", "plain_ms", "bound_ms"))
+    summary["max_abs_err"] = max(errs.values())
+    log(f"attn_weights per request ({summary['layers']} launches, B=16, "
+        f"10 s, bf16): device {summary['ms']:.4f} ms, wrapper host "
         f"{summary['host_ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms, "
         f"bound {summary['bound_ms']:.4f} ms ({summary['bound_by']})", card)
     return summary, timing
@@ -244,7 +295,6 @@ def fbank_fft_flops(frames, flen, n_mels, n_weights):
 def phase_fbank(card, report):
     from speech2text_torch.data.frontend import Fbank
     from speech2text_torch.ops import fbank as fb
-    from speech2text_torch.tools.timing import device_ms, events_ms, host_ms
     rng = np.random.default_rng(SEED + 1)
     N = 10 * SR + 77                        # N % 160 != 0
     lens = ragged_lengths(rng, B_SERVE, 2, 10, N)
@@ -287,32 +337,47 @@ def phase_fbank(card, report):
         f"{band_err:.3g} of the frame's mel energy (tol {BAND_ENERGY_TOL}), "
         f"{int(silent.sum())} silent frames exactly log(FLT_EPSILON)", card)
 
+    summary = fbank_timing(fbank, x, card, err)
+    summary["band_limited_err_of_energy"] = band_err
+    report["fbank"] = summary
+    return summary
+
+
+def fbank_timing(fbank, x, card, err):
+    """Device time of the B2 kernel on the PCM `x`, the wrapper's host
+    time, the plain version's time and the bound."""
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.tools.timing import device_ms, events_ms, host_ms
+    cfg = fbank.cfg
+    B, N = x.shape
+    T = cfg.num_frames(N)
+    ops = (fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks)
+    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift,
+              preemph=cfg.preemphasis, remove_dc=cfg.remove_dc_offset)
     _, _, weights = fb.fft_operands(*ops[1:])
     k_ms = device_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw), fb.KERNEL.name)
     h_ms = host_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw))
     p_ms = events_ms(lambda: fb.fbank_plain(x, *ops, T, **kw))
     flen, n_mels, n_w = cfg.frame_length, cfg.num_mel_bins, weights.numel()
-    nbytes = 4 * (B_SERVE * N + B_SERVE * T * n_mels + flen + 2 * fb.N_FFT
+    nbytes = 4 * (B * N + B * T * n_mels + flen + 2 * fb.N_FFT
                   + 3 * n_mels + n_w)
-    flops = fbank_fft_flops(B_SERVE * T, flen, n_mels, n_w)
+    flops = fbank_fft_flops(B * T, flen, n_mels, n_w)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     n_bins = fb.N_FFT // 2 + 1
-    dft_flops = B_SERVE * T * (4 * flen * n_bins + 2 * n_bins * n_mels)
+    dft_flops = B * T * (4 * flen * n_bins + 2 * n_bins * n_mels)
     summary = {"ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "max_abs_err": err, "band_limited_err_of_energy": band_err,
-               "fft_gflop": flops / 1e9,
+               "max_abs_err": err, "fft_gflop": flops / 1e9,
                "dft_product_bound_ms": dft_flops / PEAK_FLOPS[torch.float32]
                * 1e3}
-    log(f"fbank B={B_SERVE} N={N} frames={T}: device {k_ms:.4f} ms, "
+    log(f"fbank B={B} N={N} frames={T}: device {k_ms:.4f} ms, "
         f"wrapper host {h_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"bound {summary['bound_ms']:.4f} ms ({summary['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP f32), "
         f"{100 * summary['bound_ms'] / k_ms:.1f}% of bound, max abs err "
         f"{err:.3g}", card)
-    report["fbank"] = summary
     return summary
 
 
@@ -481,6 +546,380 @@ def phase_serve(layer_shapes, card, report):
     return launches
 
 
+# ------------------------------------------------------------ training
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    d = float((got.float() - want.float()).abs().max())
+    return d / max(float(want.float().abs().max()), 1e-30)
+
+
+def max_abs_score(q, k, qp, p):
+    """The largest |score| before the clip, in f32."""
+    from speech2text_torch.ops.attn_weights import toeplitz_index
+    T, qd, pd = q.shape[1], q.shape[-1], qp.shape[-1]
+    q, k, qp, p = (t.float() for t in (q, k, qp, p))
+    s = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(qd)
+    s += torch.einsum("bthd,tshd->bhts", qp,
+                      p[toeplitz_index(T, q.device)]) / math.sqrt(pd)
+    return float(s.abs().max())
+
+
+def phase_attn_grad(enc_cfg, card, report):
+    """Phase 7: kernel B1's gradient on the card, then both kernels and
+    B1's backward timed at the training shapes."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.tools.timing import (attn_inputs, events_ms,
+                                                pad_mask_of, stack_shapes)
+    qd, pd = enc_cfg["query_head_dim"], enc_cfg["pos_head_dim"]
+    shapes = stack_shapes(enc_cfg, TRAIN_SECS * SR)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    errs, bad = {}, []
+    for T, H in sorted(set(shapes)):
+        B = 8
+        mask = pad_mask_of(rng, B, T)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, qp, p = attn_inputs(gen, B, T, H, qd, pd, dt)
+            dw = torch.randn((B, H, T, T), generator=gen,
+                             device="cuda").to(dt)
+            leaves = [t.clone().requires_grad_() for t in (q, k, qp, p)]
+            aw.zip_weights(*leaves, mask, w_dtype=dt).backward(dw)
+            fed = aw.attn_weights_backward(
+                q, k, qp, p, aw.attn_weights_plain(q, k, qp, p, mask, dt),
+                dw)
+            # torch autograd through the plain f32 forward: the same where
+            # no score reaches the ±100 clip and no row is fully masked
+            # (JAX's backward, and so the port's, gives such a row's
+            # uniform weights a gradient; the masked scores give none; in
+            # the encoder those rows' cotangent is 0)
+            score = max_abs_score(q, k, qp, p)
+            assert score < 100.0, f"T={T}: |score| {score} reaches the clip"
+            live = mask.any(-1)[:, None, :, None]
+            dw_live = dw * live
+            leaves_l = [t.clone().requires_grad_() for t in (q, k, qp, p)]
+            aw.zip_weights(*leaves_l, mask, w_dtype=dt).backward(dw_live)
+            leaves32 = [t.float().requires_grad_() for t in (q, k, qp, p)]
+            aw.attn_weights_plain(*leaves32, mask, torch.float32).backward(
+                dw_live.float())
+            for name, g, f, gl, r in zip(("dq", "dk", "dqp", "dp"), leaves,
+                                         fed, leaves_l, leaves32):
+                assert g.grad.dtype == dt
+                e = (rel_err(g.grad, f), rel_err(gl.grad, r.grad))
+                errs[f"T={T},H={H},{dt},{name}"] = e
+                if max(e) > GRAD_TOL[dt]:
+                    bad.append((T, H, str(dt), name, e))
+    worst = {str(dt): max(max(e) for key, e in errs.items()
+                          if key.split(",")[2] == str(dt))
+             for dt in (torch.bfloat16, torch.float32)}
+    log(f"attn_weights gradient, B=8 at T {sorted(set(shapes))}: worst "
+        f"error over the largest entry, kernel-fed vs plain-fed backward "
+        f"and vs autograd of the plain f32 forward: {worst} (tolerance "
+        f"{ {str(k): v for k, v in GRAD_TOL.items()} })", card)
+    report["attn_weights_grad"] = errs
+    assert not bad, f"attn_weights gradient out of tolerance: {bad}"
+
+    # the training shapes: B=128, 10 s, bf16, pad mask
+    timing, bwd, train_errs = {}, {}, []
+    for T, H in sorted(set(shapes)):
+        q, k, qp, p = attn_inputs(gen, B_TRAIN, T, H, qd, pd,
+                                  torch.bfloat16)
+        mask = pad_mask_of(rng, B_TRAIN, T)
+        w = aw.attn_weights_cuda(q, k, qp, p, mask, torch.bfloat16)
+        err = check_weights(f"attn_weights B={B_TRAIN} T={T} H={H} bf16",
+                            w, q, k, qp, p, mask, torch.bfloat16)
+        train_errs.append(err)
+        timing[(T, H)] = attn_timing(q, k, qp, p, mask, card, err)
+        dw = torch.randn(w.shape, generator=gen, device="cuda").to(w.dtype)
+        bwd[(T, H)] = {"backward_ms": events_ms(
+            lambda: aw.attn_weights_backward(q, k, qp, p, w, dw), iters=5)}
+        log(f"attn_weights backward B={B_TRAIN} T={T} H={H} bf16 (plain "
+            f"torch): {bwd[(T, H)]['backward_ms']:.4f} ms", card)
+        del q, k, qp, p, w, dw
+    summary = per_layer_sum(timing, shapes, enc_cfg,
+                            ("ms", "host_ms", "plain_ms", "bound_ms"))
+    summary.update(per_layer_sum(bwd, shapes, enc_cfg, ("backward_ms",)))
+    summary["max_abs_err"] = max(train_errs)
+    log(f"attn_weights per train step ({summary['layers']} launches, "
+        f"B={B_TRAIN}, 10 s, bf16): forward device {summary['ms']:.4f} ms, "
+        f"plain {summary['plain_ms']:.4f} ms, bound "
+        f"{summary['bound_ms']:.4f} ms ({summary['bound_by']}); backward "
+        f"{summary['backward_ms']:.4f} ms", card)
+    report["attn_weights_train"] = {
+        "per_shape": {f"T={T},H={H}": dict(v, **bwd[(T, H)])
+                      for (T, H), v in timing.items()},
+        "per_step": summary}
+    torch.cuda.empty_cache()
+
+    from speech2text_torch.data.frontend import Fbank
+    from speech2text_torch.ops import fbank as fb
+    fbank = Fbank().cuda()
+    x = torch.from_numpy((0.1 * rng.standard_normal(
+        (B_TRAIN, TRAIN_SECS * SR))).astype(np.float32)).cuda()
+    cfg = fbank.cfg
+    T = cfg.num_frames(x.shape[1])
+    ops = (fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks)
+    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift,
+              preemph=cfg.preemphasis, remove_dc=cfg.remove_dc_offset)
+    err = check_close("fbank B=128", fb.fbank_cuda(x, *ops, T, **kw),
+                      fb.fbank_plain(x, *ops, T, **kw), **FBANK_TOL)
+    fsum = fbank_timing(fbank, x, card, err)
+    report["fbank_train"] = fsum
+    return summary, fsum
+
+
+def train_pcm(rng, B, lo_s, hi_s, U, vocab):
+    """f32 PCM (B, hi_s·SR) with ragged lengths, labels (B, U)."""
+    N = int(hi_s * SR)
+    lens = ragged_lengths(rng, B, lo_s, hi_s, N)
+    pcm = (0.1 * rng.standard_normal((B, N))).astype(np.float32)
+    pcm[np.arange(N)[None] >= lens[:, None]] = 0.0
+    labels = rng.integers(1, vocab, (B, U)).astype(np.int32)
+    lab_lens = np.full((B,), U, np.int32)
+    lab_lens[1:] = rng.integers(U // 2, U + 1, B - 1)
+    return pcm, lens.astype(np.int32), labels, lab_lens
+
+
+def phase_train_f32(card, report):
+    """Phase 8: one f32 train step on the card and on the CPU."""
+    from speech2text_torch.config import load_config
+    from speech2text_torch.train.step import TrainStep
+    cfg = load_config(TRAIN_CFG)
+    cfg["encoder"]["config"].update(dtype="float32", dropout=0.0,
+                                    feature_mask_dropout_prob=0.0)
+    chunk = (32, 4)
+    batch = train_pcm(np.random.default_rng(SEED + 7), 2, 2, 3, 12,
+                      cfg["joiner"]["output_dim"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        ts = TrainStep.from_config(cfg, device=dev, seed=SEED + 7)
+        opt = ts.optimizer
+        rms0 = {id(p): float(r) for gi, idxs in enumerate(opt.groups)
+                for p, r in zip((opt.params[i] for i in idxs),
+                                opt.param_rms[gi])}
+        named = list(ts.model.named_parameters())
+        out = ts.step(*batch, chunk=chunk)
+        res[dev] = dict(
+            losses={k: float(v) for k, v in out.items()},
+            grads={n: p.grad.detach().cpu() for n, p in named},
+            params={n: p.detach().cpu() for n, p in named},
+            rms={n: rms0[id(p)] for n, p in named},
+            lr=opt.lr_at(0), seconds=time.perf_counter() - t0)
+    gpu, cpu = res["cuda"], res["cpu"]
+    for k, v in cpu["losses"].items():
+        assert abs(gpu["losses"][k] - v) <= STEP_LOSS_RTOL * abs(v), \
+            f"f32 step {k}: card {gpu['losses'][k]} vs CPU {v}"
+    # a key bias adds q·b/√qd to every score of a query row, which the
+    # softmax ignores: its exact gradient is 0, and what both devices hold
+    # is rounding noise, to be small next to the key weights' gradient
+    shift_free = [n for n in cpu["grads"] if n.endswith("k_proj.bias")]
+    for n in shift_free:
+        w = n[:-len("bias")] + "weight"
+        for r in (gpu, cpu):
+            noise = float(r["grads"][n].abs().max())
+            assert noise <= SHIFT_FREE_TOL * float(
+                r["grads"][w].abs().max()), f"{n}: gradient {noise}"
+    g_err = {n: rel_err(gpu["grads"][n], g) for n, g in cpu["grads"].items()
+             if float(g.abs().max()) > 0 and n not in shift_free}
+    bad = {n: e for n, e in g_err.items() if e > STEP_GRAD_TOL}
+    assert not bad, f"f32 step gradients card vs CPU: {bad}"
+    b1, eps = 0.9, 1e-8
+    flips, n_el, worst = 0, 0, 0.0
+    for n, want in cpu["params"].items():
+        got = gpu["params"][n]
+        # the first step moves each element by −lr·(1−β1)·scale·u(g),
+        # u(g) = g/(|g|+eps) (v̂ = g²), scale = the tensor's rms at least
+        # param_min_rms, or scalar_lr_scale for a scalar: the two devices'
+        # parameters may differ by what their gradients' u differ by
+        scale = 0.1 if want.numel() <= 1 else max(cpu["rms"][n], 1e-5)
+        u = [g / (g.abs() + eps) for g in (gpu["grads"][n],
+                                           cpu["grads"][n])]
+        explained = cpu["lr"] * (1 - b1) * scale * (u[0] - u[1]).abs()
+        tol = STEP_PARAM_TOL["atol"] + STEP_PARAM_TOL["rtol"] * want.abs()
+        d = (got - want).abs()
+        assert bool((d <= tol + explained * (1 + 1e-3)).all()), \
+            f"f32 step param {n}: {float(d.max())} apart beyond what the " \
+            f"gradients' difference explains"
+        flips += int((d > tol).sum())
+        n_el += want.numel()
+        worst = max(worst, float(d.max()))
+    log(f"f32 train step (flagship dims, dropout off, chunk {chunk}, B=2, "
+        f"2-3 s): loss card {gpu['losses']['loss']:.6f} vs CPU "
+        f"{cpu['losses']['loss']:.6f}; worst gradient error "
+        f"{max(g_err.values()):.3g} of its largest entry (tol "
+        f"{STEP_GRAD_TOL}; the {len(shift_free)} key biases, whose exact "
+        f"gradient is 0, below {SHIFT_FREE_TOL} of the key weights'); "
+        f"parameters: {flips} of {n_el} elements beyond "
+        f"rtol 1e-4 / atol 1e-6, each within what the gradients' "
+        f"difference moves the step by, max abs diff "
+        f"{worst:.3g}; step time card {gpu['seconds']:.1f} s, CPU "
+        f"{cpu['seconds']:.1f} s (set-up included)", card)
+    report["train_f32_card_vs_cpu"] = {
+        "losses": {d: r["losses"] for d, r in res.items()},
+        "worst_grad_err": max(g_err.values()), "params_apart": flips,
+        "params": n_el, "max_param_diff": worst}
+
+
+SPANS = ("featurize", "encoder", "joiner_losses", "backward", "optimizer")
+
+
+def phase_train_bf16(card, report):
+    """Phase 9: the flagship train step at bench.py's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.train.step import TrainStep
+    ts = TrainStep.from_config(TRAIN_CFG, device="cuda", seed=SEED)
+    enc_cfg = ts.model.encoder.config
+    assert enc_cfg.dtype == "bfloat16" and enc_cfg.dropout > 0
+    vocab = ts.model.joiner.config.output_dim
+    rng = np.random.default_rng(SEED)
+    N = TRAIN_SECS * SR
+    pcm = torch.from_numpy((0.1 * rng.standard_normal((B_TRAIN, N)))
+                           .astype(np.float32)).cuda()
+    pcm_lens = torch.full((B_TRAIN,), N, dtype=torch.int32, device="cuda")
+    labels = torch.from_numpy(rng.integers(1, vocab, (B_TRAIN, TRAIN_U))
+                              .astype(np.int32)).cuda()
+    lab_lens = torch.full((B_TRAIN,), TRAIN_U, dtype=torch.int32,
+                          device="cuda")
+    batch = (pcm, pcm_lens, labels, lab_lens)
+    t0 = time.perf_counter()
+    warm = ts.step(*batch)
+    torch.cuda.synchronize()
+    log(f"train warm-up step: {time.perf_counter() - t0:.2f} s, loss "
+        f"{float(warm['loss']):.4f}")
+    params = [p for p in ts.model.parameters()]
+    before = [p.detach().clone() for p in params]
+    torch.cuda.reset_peak_memory_stats()
+
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    per_step, times, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        a0, f0 = aw.KERNEL.launches, fb.KERNEL.launches
+        t0 = time.perf_counter()
+        out = ts.step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((aw.KERNEL.launches - a0, fb.KERNEL.launches - f0))
+        losses.append({k: float(v) for k, v in out.items()})
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    expect = (sum(enc_cfg.num_encoder_layers), 1)
+    assert all(r == expect for r in per_step), \
+        f"launches per train step (attn_weights, fbank): {per_step}, " \
+        f"expected {expect}"
+    assert all(math.isfinite(v) for r in losses for v in r.values()), \
+        f"non-finite train losses {losses}"
+    changed = sum(not torch.equal(b, p) for b, p in zip(before, params))
+    assert changed >= 0.9 * len(params), \
+        f"only {changed} of {len(params)} parameter tensors changed"
+    med = statistics.median(times)
+    log(f"train step flagship bf16 B={B_TRAIN} x {TRAIN_SECS} s U={TRAIN_U}:"
+        f" median {med:.2f} ms/step ({', '.join(f'{x:.2f}' for x in times)})"
+        f", {B_TRAIN / med * 1e3:.2f} utt/s, peak memory {peak / 2**30:.2f} "
+        f"GiB, launches per step {per_step[0]}, losses "
+        f"{[round(r['loss'], 4) for r in losses]}; {changed} of "
+        f"{len(params)} parameter tensors changed", card)
+
+    parts = train_parts(ts, batch, card)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    # device rows: kernels and copies; the spans' GPU-side annotations
+    # cover kernels already counted and are left out
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and e.key not in SPANS]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    spans = {}
+    for e in prof.events():
+        if e.name in SPANS and e.device_type != cuda:
+            spans[e.name] = spans.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    log(f"profiled train step: wall {wall:.2f} ms, device busy {busy:.2f} "
+        f"ms ({100 * busy / wall:.1f}%), {sum(r[2] for r in rows)} device "
+        f"ops; host time of its spans: " + ", ".join(
+            f"{name} {spans.get(name, float('nan')):.2f} ms"
+            for name in SPANS), card)
+    for key, ms, n in rows[:12]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
+    report["train_bf16"] = {
+        "B": B_TRAIN, "seconds": TRAIN_SECS, "U": TRAIN_U,
+        "ms_per_step": times, "median_ms": med,
+        "utt_per_s": B_TRAIN / med * 1e3, "peak_memory_bytes": peak,
+        "launches_per_step": per_step, "losses": losses,
+        "changed_tensors": changed, "tensors": len(params),
+        "parts_ms": parts, "profiled_wall_ms": wall,
+        "device_busy_ms": busy, "span_host_ms": spans,
+        "top_device_ops": rows[:30]}
+    return launches
+
+
+def train_parts(ts, batch, card):
+    """Wall time of the step's parts at the step's shapes, each ended by a
+    synchronise: featurize; the joiner with the simple loss and prune
+    ranges, the pruned loss, and the backward of both down to the encoder
+    and predictor outputs (the lattice losses); the optimizer step on the
+    gradients the last step left. The encoder's forward and backward are
+    the rest of the step. Medians of 3."""
+    from speech2text_torch.tasks.rnnt import sample_chunk
+    pcm, pcm_lens, labels, lab_lens = batch
+    model = ts.model
+    cs, lc = sample_chunk(model.encoder.config, ts.host_generator)
+    sync = torch.cuda.synchronize
+    times = {k: [] for k in ("featurize", "joiner_simple_ranges",
+                             "pruned_loss", "losses_backward",
+                             "optimizer")}
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        feats, feat_lens = ts.featurize(pcm, pcm_lens)
+        sync()
+        times["featurize"].append(time.perf_counter() - t0)
+        with torch.no_grad():
+            enc, enc_lens = model.encoder(feats, feat_lens, cs, lc,
+                                          training=True,
+                                          generator=ts.generator)
+            pred = model.predictor(labels)
+        enc.requires_grad_()
+        pred.requires_grad_()
+        sync()
+        t0 = time.perf_counter()
+        logits, ranges, simple = model.joiner(enc, enc_lens, pred,
+                                              lab_lens, labels)
+        sync()
+        t1 = time.perf_counter()
+        losses = ts.loss_fn({"logits": logits, "ranges": ranges,
+                             "enc_lens": enc_lens, "simple_loss": simple},
+                            labels, lab_lens)
+        sync()
+        t2 = time.perf_counter()
+        losses["loss"].backward()
+        sync()
+        t3 = time.perf_counter()
+        times["joiner_simple_ranges"].append(t1 - t0)
+        times["pruned_loss"].append(t2 - t1)
+        times["losses_backward"].append(t3 - t2)
+        t0 = time.perf_counter()
+        ts.optimizer.step()
+        sync()
+        times["optimizer"].append(time.perf_counter() - t0)
+        del enc, pred, logits, losses
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log("train step parts (median ms, synchronised): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items()), card)
+    return med
+
+
 # ------------------------------------------------------------ compare
 def load_earlier(pkg_dir):
     """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
@@ -606,27 +1045,40 @@ def main(argv):
         shape for shape, n in zip(stack_shapes(enc_cfg, 10 * SR),
                                   enc_cfg["num_encoder_layers"])
         for _ in range(n)]
-    launches = phase_serve(layer_shapes, card, report)
+    attn_train, fbank_train = phase_attn_grad(enc_cfg, card, report)
+    serve_launches = phase_serve(layer_shapes, card, report)
+    phase_train_f32(card, report)
+    launches = phase_train_bf16(card, report)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
+    keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by")
     kernels = [
         dict(name="attn_weights", route="cuda",
              source="speech2text_torch/csrc/attn_weights.cu",
              replaces="speech2text_tpu/ops/pallas/flash_attn.py:79",
              launches=launches["attn_weights"], library_ms=None,
-             **{k: attn[k] for k in ("max_abs_err", "ms", "host_ms",
-                                     "plain_ms", "bound_ms", "bound_by")}),
+             **{k: attn_train[k] for k in keys},
+             backward_route="torch",
+             backward_source="speech2text_torch/ops/attn_weights.py:"
+                             "attn_weights_backward",
+             backward_ms=attn_train["backward_ms"],
+             serve=dict(launches=serve_launches["attn_weights"],
+                        **{k: attn[k] for k in keys})),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
              launches=launches["fbank"], library_ms=None,
-             **{k: fbank[k] for k in ("max_abs_err", "ms", "host_ms",
-                                      "plain_ms", "bound_ms", "bound_by")}),
+             **{k: fbank_train[k] for k in keys},
+             serve=dict(launches=serve_launches["fbank"],
+                        **{k: fbank[k] for k in keys})),
     ]
     for k in kernels:
-        assert k["launches"] > 0, f"{k['name']} never launched on the path"
-        assert math.isfinite(k["ms"]) and k["ms"] > 0
+        for path in (k, k["serve"]):
+            assert path["launches"] > 0, \
+                f"{k['name']} never launched on a path"
+            assert math.isfinite(path["ms"]) and path["ms"] > 0
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

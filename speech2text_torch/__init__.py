@@ -6,8 +6,11 @@ The JAX package beside it is the reference this port is held against
 standard library only: never jax, flax or speech2text_tpu.
 
 Covered so far: zipformer pruned-RNN-T greedy serving
-(`serve.RnntServer`), with hand-written CUDA kernels for the log-mel
-fbank (`ops/fbank.py`, `csrc/fbank.cu`) and the zipformer attention
-weights (`ops/attn_weights.py`, `csrc/attn_weights.cu`). `tools/` holds
-the measurement helpers for the card: kernel timing and ablations.
+(`serve.RnntServer`) and its training step (`train.step.TrainStep`:
+the transducer lattice losses in `ops/rnnt.py` and `ops/pruned_rnnt.py`,
+`losses.py`, ScaledAdam + Eden in `optim/`), with hand-written CUDA
+kernels for the log-mel fbank (`ops/fbank.py`, `csrc/fbank.cu`) and the
+zipformer attention weights (`ops/attn_weights.py`,
+`csrc/attn_weights.cu`; its gradient is plain torch). `tools/` holds the
+measurement helpers for the card: kernel timing and ablations.
 """

@@ -1,9 +1,14 @@
 """Zipformer2 encoder (port of speech2text_tpu/models/zipformer.py).
 
-Covers the serving forward: deterministic, `dynamics=False`, unrolled
-layers (the `layer{i}` parameter layout), both `full_dim_bypass`
-settings, full-context or chunk-causal attention masks. Streaming,
-training dynamics, dropout and the `scan_layers` layout are not ported.
+Covers the serving forward and the training forward with
+`dynamics=False`: unrolled layers (the `layer{i}` parameter layout), both
+`full_dim_bypass` settings, full-context or chunk-causal attention masks.
+In training (`training=True`) the feedforwards drop out after SwooshL and
+each stack's output channels at or above `encoder_unmasked_dim[i]` are
+zeroed for a random share of whole utterances, the masks drawn from the
+`torch.Generator` the caller passes. Streaming, the training dynamics
+(`dynamics=True`: balancers, whitening, skip schedules) and the
+`scan_layers` layout are not ported.
 
 Layouts at the edges are the JAX ones: the frontend takes fbank
 (B, T, F) and keeps its conv activations channels-last (B, T, F, C);
@@ -34,6 +39,17 @@ from .layers import Conv, Dense, dtype_of
 
 
 # ------------------------------------------------------------- primitives
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax.linen.Dropout: keep with probability 1 − rate and scale by
+    1/(1 − rate); the identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def _softplus0(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) as logaddexp(0, x) (F.softplus's threshold changes
     the values)."""
@@ -324,13 +340,16 @@ class NonlinAttention(nn.Module):
 
 class FeedforwardModule(nn.Module):
     def __init__(self, dim: int, ff_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.in_ = Dense(dim, ff_dim, dtype=dtype)
         self.out = Dense(ff_dim, dim, dtype=dtype, init_scale=0.1 ** 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(swoosh_l(self.in_(x)))
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(swoosh_l(self.in_(x)), self.dropout, training, generator)
+        return self.out(h)
 
 
 class ConvolutionModule(nn.Module):
@@ -360,37 +379,40 @@ class Zipformer2EncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, ff_dim: int, num_heads: int,
                  query_head_dim: int, value_head_dim: int,
                  pos_head_dim: int, pos_dim: int, kernel_size: int,
-                 causal: bool, dtype: torch.dtype = torch.float32):
+                 causal: bool, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         D = embed_dim
         self.attn_weights = AttentionWeights(D, num_heads, query_head_dim,
                                              pos_head_dim, pos_dim, dtype)
-        self.ff1 = FeedforwardModule(D, ff_dim * 3 // 4, dtype)
+        self.ff1 = FeedforwardModule(D, ff_dim * 3 // 4, dtype, dropout)
         self.nonlin_attn = NonlinAttention(D, D * 3 // 4, dtype)
         self.self_attn1 = SelfAttention(D, num_heads, value_head_dim, dtype)
         self.conv1 = ConvolutionModule(D, kernel_size, causal, dtype)
-        self.ff2 = FeedforwardModule(D, ff_dim, dtype)
+        self.ff2 = FeedforwardModule(D, ff_dim, dtype, dropout)
         self.bypass_mid = BypassModule(D)
         self.self_attn2 = SelfAttention(D, num_heads, value_head_dim, dtype)
         self.conv2 = ConvolutionModule(D, kernel_size, causal, dtype)
-        self.ff3 = FeedforwardModule(D, ff_dim * 5 // 4, dtype)
+        self.ff3 = FeedforwardModule(D, ff_dim * 5 // 4, dtype, dropout)
         self.norm = BiasNorm(D, dtype)
         self.bypass = BypassModule(D)
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 pad_mask: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         attn_w = self.attn_weights(x, pos_emb, attn_mask)
         src = x
-        x = x + self.ff1(x)
+        x = x + self.ff1(x, training, generator)
         x = x + self.nonlin_attn(x, attn_w[:, 0])
         x = x + self.self_attn1(x, attn_w)
         x = x + self.conv1(x, pad_mask)
-        x = x + self.ff2(x)
+        x = x + self.ff2(x, training, generator)
         x = self.bypass_mid(src, x)
         x = x + self.self_attn2(x, attn_w)
         x = x + self.conv2(x, pad_mask)
-        x = x + self.ff3(x)
+        x = x + self.ff3(x, training, generator)
         x = self.norm(x)
         return self.bypass(src, x)
 
@@ -405,7 +427,7 @@ class Zipformer2Stack(nn.Module):
                  kernel_size: int, causal: bool,
                  dtype: torch.dtype = torch.float32,
                  pos_variant: str = "fourier",
-                 full_dim_bypass: bool = False):
+                 full_dim_bypass: bool = False, dropout: float = 0.1):
         super().__init__()
         self.downsample_factor = downsample
         self.embed_dim = embed_dim
@@ -414,7 +436,7 @@ class Zipformer2Stack(nn.Module):
             Zipformer2EncoderLayer(embed_dim, ff_dim, num_heads,
                                    query_head_dim, value_head_dim,
                                    pos_head_dim, pos_dim, kernel_size,
-                                   causal, dtype)
+                                   causal, dtype, dropout)
             for _ in range(num_layers))
         self.downsample = SimpleDownsample(downsample)
         self.up = SimpleUpsample(downsample)
@@ -424,7 +446,8 @@ class Zipformer2Stack(nn.Module):
             embed_dim if full_dim_bypass else min(input_dim, embed_dim))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                attn_mask_fn) -> torch.Tensor:
+                attn_mask_fn, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, D_in = x.shape
         ds = self.downsample_factor
         x_orig = x
@@ -435,7 +458,7 @@ class Zipformer2Stack(nn.Module):
         attn_mask = attn_mask_fn(Td, ds, pad_mask)
         pos_emb = self.penc(Td, x.device)
         for layer in self.layers:
-            x = layer(x, pos_emb, pad_mask, attn_mask)
+            x = layer(x, pos_emb, pad_mask, attn_mask, training, generator)
         x = self.up(x, T)
         x = torch.where(make_non_pad_mask(lengths, T)[..., None], x, 0.0)
         if self.full_dim_bypass:
@@ -451,17 +474,20 @@ class Zipformer2Stack(nn.Module):
 # ------------------------------------------------------------------ model
 @dataclasses.dataclass
 class Zipformer2Config:
-    """The fields the serving forward reads. `from_config` ignores the
-    JAX config's training-only keys (dropout, chunk and left-context
-    sampling lists, feature masking, remat, dynamics, scan_layers) and
-    its kernel switches (use_flash_attn, flash_min_batch, score_dtype):
-    the port computes the weights with its CUDA kernel on the card at
-    every batch size, with f32 scores, as the JAX `fused` path does."""
+    """The fields the serving and training forwards read. The chunk and
+    left-context lists are read by the task's chunk sampling
+    (tasks/rnnt.py:sample_chunk). `from_config` ignores the JAX config's
+    memory and layout switches (remat, remat_policy, scan_layers), which
+    change no value, and its kernel switches (use_flash_attn,
+    flash_min_batch, score_dtype): the port computes the weights with its
+    CUDA kernel on the card at every batch size, with f32 scores, as the
+    JAX `fused` path does. `dynamics=True` is not ported and raises."""
     feature_dim: int = 80
     downsampling_factor: Tuple[int, ...] = (1, 2, 4, 8, 4, 2)
     num_encoder_layers: Tuple[int, ...] = (2, 2, 2, 2, 2, 2)
     feedforward_dim: Tuple[int, ...] = (512, 768, 768, 768, 768, 768)
     encoder_dim: Tuple[int, ...] = (192, 256, 256, 256, 256, 256)
+    encoder_unmasked_dim: Tuple[int, ...] = (192, 192, 192, 192, 192, 192)
     num_heads: Tuple[int, ...] = (4, 4, 4, 8, 4, 4)
     query_head_dim: int = 32
     value_head_dim: int = 12
@@ -469,8 +495,13 @@ class Zipformer2Config:
     pos_dim: int = 48
     cnn_module_kernel: Tuple[int, ...] = (31, 31, 15, 15, 15, 31)
     causal: bool = False
+    chunk_size: Tuple[int, ...] = (-1,)
+    left_context_frames: Tuple[int, ...] = (-1,)
     output_downsampling_factor: int = 2
+    dropout: float = 0.1
+    feature_mask_dropout_prob: float = 0.15
     dtype: str = "float32"
+    dynamics: bool = False
     pos_variant: str = "fourier"
     full_dim_bypass: bool = False
 
@@ -478,8 +509,9 @@ class Zipformer2Config:
     def from_config(cls, cfg: dict) -> "Zipformer2Config":
         cfg = dict(cfg)
         for k in ("downsampling_factor", "num_encoder_layers",
-                  "feedforward_dim", "encoder_dim", "num_heads",
-                  "cnn_module_kernel"):
+                  "feedforward_dim", "encoder_dim", "encoder_unmasked_dim",
+                  "num_heads", "cnn_module_kernel", "chunk_size",
+                  "left_context_frames"):
             if k in cfg and isinstance(cfg[k], list):
                 cfg[k] = tuple(cfg[k])
         valid = {f.name for f in dataclasses.fields(cls)}
@@ -494,6 +526,9 @@ class Zipformer2(nn.Module):
     def __init__(self, config: Zipformer2Config):
         super().__init__()
         cfg = self.config = config
+        if cfg.dynamics:
+            raise NotImplementedError("the zipformer training dynamics "
+                                      "(dynamics=True) are not ported")
         dt = dtype_of(cfg.dtype)
         self.embed = Conv2dSubsampling(cfg.feature_dim, cfg.encoder_dim[0],
                                        dtype=dt, causal=cfg.causal)
@@ -513,7 +548,8 @@ class Zipformer2(nn.Module):
                 causal=cfg.causal,
                 dtype=dt,
                 pos_variant=cfg.pos_variant,
-                full_dim_bypass=cfg.full_dim_bypass)
+                full_dim_bypass=cfg.full_dim_bypass,
+                dropout=cfg.dropout)
             for i in range(len(cfg.encoder_dim)))
         self.out_downsample = SimpleDownsample(
             cfg.output_downsampling_factor)
@@ -534,16 +570,30 @@ class Zipformer2(nn.Module):
         return torch.cat([piece.to(rt) for piece in pieces], dim=-1)
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
-                chunk_size: int = -1, left_context_chunks: int = -1
+                chunk_size: int = -1, left_context_chunks: int = -1,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`training` turns on dropout and the feature mask, drawn from
+        `generator` (on the input's device); off, the forward is the
+        serving forward."""
         x, lens = self.embed(feats, lengths)
-        return self.encode_embedded(x, lens, chunk_size, left_context_chunks)
+        return self.encode_embedded(x, lens, chunk_size, left_context_chunks,
+                                    training, generator)
 
     def encode_embedded(self, x: torch.Tensor, lens: torch.Tensor,
-                        chunk_size: int = -1, left_context_chunks: int = -1
+                        chunk_size: int = -1, left_context_chunks: int = -1,
+                        training: bool = False,
+                        generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stacks on post-subsampling features (B, T, dim0)."""
         cfg = self.config
+        keep = None
+        if training and cfg.feature_mask_dropout_prob > 0:
+            # one draw per utterance, kept for every stack
+            keep = torch.rand((x.shape[0], 1, 1), generator=generator,
+                              device=x.device) \
+                < 1.0 - cfg.feature_mask_dropout_prob
 
         def attn_mask_fn(Td: int, ds_factor: int, pad_mask: torch.Tensor):
             mask = pad_mask[:, None, :] & pad_mask[:, :, None]
@@ -555,8 +605,13 @@ class Zipformer2(nn.Module):
             return mask & cm[None]
 
         outputs = []
-        for stack in self.stacks:
-            x = stack(x, lens, attn_mask_fn)
+        for i, stack in enumerate(self.stacks):
+            x = stack(x, lens, attn_mask_fn, training, generator)
+            if keep is not None:
+                d_idx = torch.arange(x.shape[-1], device=x.device)
+                x = x * torch.where(
+                    d_idx[None, None, :] < cfg.encoder_unmasked_dim[i], 1.0,
+                    keep.to(x.dtype))
             outputs.append(x)
         out = self.out_downsample(self._recombine(outputs))
         f = cfg.output_downsampling_factor

@@ -1,0 +1,25 @@
+"""Eden learning-rate schedule (port of
+speech2text_tpu/optim/schedules.py:EdenSchedule): a callable step → lr.
+
+Eden is icefall's (step, epoch)-indexed schedule; the epoch is derived
+from `steps_per_epoch`, so the schedule is step-indexed:
+lr · ((step²+B²)/B²)^-0.25 · ((epoch²+E²)/E²)^-0.25 · warmup, with
+warmup = 0.5 + 0.5·min(step/warmup_batches, 1).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+
+def EdenSchedule(lr: float, lr_batches: float = 5000.0,
+                 lr_epochs: float = 6.0, steps_per_epoch: int = 10000,
+                 warmup_batches: float = 500.0) -> Callable[[int], float]:
+    def schedule(step: int) -> float:
+        s = float(step)
+        epoch = s / steps_per_epoch
+        f_step = ((s ** 2 + lr_batches ** 2) / lr_batches ** 2) ** -0.25
+        f_epoch = ((epoch ** 2 + lr_epochs ** 2) / lr_epochs ** 2) ** -0.25
+        warmup = min(s / warmup_batches, 1.0) * 0.5 + 0.5
+        return lr * f_step * f_epoch * warmup
+    return schedule

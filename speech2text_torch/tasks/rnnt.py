@@ -1,15 +1,19 @@
-"""Transducer model assembly (port of the serving half of
-speech2text_tpu/tasks/rnnt.py:RnntModel): encoder + predictor + joiner,
-with the three calls greedy decoding needs."""
+"""Transducer model assembly (port of speech2text_tpu/tasks/rnnt.py):
+`RnntModel` (encoder + predictor + joiner) with its training forward and
+the three calls greedy decoding needs, the random chunk choice of
+chunked-causal training (`sample_chunk`) and the pruned RNN-T task loss
+(`PrunedRnntLossFn`)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..config import from_dict
+from ..losses import Loss
 from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
 from ..models.predictor import StatelessPredictor, StatelessPredictorConfig
@@ -56,6 +60,27 @@ class RnntModel(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         init_parameters(self, generator)
 
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                labels: torch.Tensor, label_lens: torch.Tensor,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                chunk_size: int = -1, left_context_chunks: int = -1
+                ) -> Dict[str, torch.Tensor]:
+        """The training forward (RnntModel.__call__): encoder →
+        predictor → joiner; `training` turns on the encoder's dropout and
+        feature mask, drawn from `generator`."""
+        with record_function("encoder"):
+            enc, enc_lens = self.encoder(feats, feat_lens, chunk_size,
+                                         left_context_chunks,
+                                         training=training,
+                                         generator=generator)
+        with record_function("joiner_losses"):
+            pred = self.predictor(labels)
+            logits, ranges, simple_loss = self.joiner(enc, enc_lens, pred,
+                                                      label_lens, labels)
+        return {"enc": enc, "enc_lens": enc_lens, "logits": logits,
+                "ranges": ranges, "simple_loss": simple_loss}
+
     def encode(self, feats: torch.Tensor, feat_lens: torch.Tensor):
         return self.encoder(feats, feat_lens)
 
@@ -64,3 +89,47 @@ class RnntModel(nn.Module):
 
     def joiner_step(self, enc_frame: torch.Tensor, pred_out: torch.Tensor):
         return self.joiner.streaming_step(enc_frame, pred_out)
+
+
+def sample_chunk(config: Zipformer2Config,
+                 generator: torch.Generator) -> Tuple[int, int]:
+    """Random chunked-causal training (tasks/rnnt.py:_sample_chunk): a
+    (chunk_size, left_context_chunks) pair drawn from the encoder config's
+    `chunk_size` and `left_context_frames` lists; (-1, -1), full
+    attention, for a non-causal encoder or the list [-1]. `generator` is
+    a CPU generator: the choice is made on the host."""
+    chunks = list(config.chunk_size or [-1])
+    lefts = list(config.left_context_frames or [-1])
+    if not config.causal or chunks == [-1]:
+        return -1, -1
+    cs = int(chunks[int(torch.randint(len(chunks), (), generator=generator))])
+    lf = int(lefts[int(torch.randint(len(lefts), (), generator=generator))])
+    lc = max(lf // max(cs, 1), 1) if lf > 0 and cs > 0 else -1
+    return cs, lc
+
+
+class PrunedRnntLossFn:
+    """PrunedRnntTask.loss_fn's combination (tasks/rnnt.py:335-354):
+    simple_scale · simple + pruned_scale · pruned, the scales from the
+    YAML `loss` section. The auxiliary CTC branch is not ported."""
+
+    def __init__(self, loss_config: Dict[str, Any]):
+        self.simple_scale = float(loss_config.get("simple_loss_scale", 0.5))
+        self.pruned_scale = float(loss_config.get("pruned_loss_scale", 0.5))
+        if loss_config.get("enable_ctc", False):
+            raise NotImplementedError("the pruned task's CTC branch "
+                                      "(enable_ctc) is not ported")
+        self.pruned_loss = Loss({"model": "Pruned_Rnnt",
+                                 "config": loss_config.get("config", {})})
+
+    def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
+                 label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        pruned = self.pruned_loss({"logits": out["logits"],
+                                   "ranges": out["ranges"],
+                                   "logits_length": out["enc_lens"],
+                                   "label": labels,
+                                   "label_length": label_lens})
+        simple = out["simple_loss"]
+        return {"loss": self.simple_scale * simple
+                + self.pruned_scale * pruned,
+                "simple_loss": simple, "pruned_loss": pruned}

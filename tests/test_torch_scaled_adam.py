@@ -1,0 +1,109 @@
+"""ScaledAdam + Eden of the port (speech2text_torch/optim) against the
+optax version of the JAX package: a 14-step trajectory on a synthetic tree
+(a scalar leaf, leaves of one shape, leaves of distinct shapes) that
+crosses the size-update boundaries, the end of the no-clip window (step
+10), a step with an infinite grad and a clipped step. Tolerance: rtol
+1e-5, atol 2e-6, as tests/test_scaled_adam_oracle.py holds the optax
+version to icefall's."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from speech2text_tpu.optim import schedules as jsched
+from speech2text_tpu.optim.scaled_adam import scaled_adam
+from speech2text_torch.optim import EdenSchedule, OptimSetup, ScaledAdam
+
+SHAPES = {"a": (4, 3), "b": (4, 3), "c": (6,), "s": (), "w": (2, 3, 4),
+          "x": (4, 3), "z": (1,)}
+STEPS = 14
+INF_STEP, BIG_STEP = 11, 12
+
+
+def _grads(rng, step):
+    g = {k: (rng.standard_normal(s) * 0.1).astype(np.float32)
+         for k, s in SHAPES.items()}
+    if step == INF_STEP:
+        g["w"] = g["w"].copy()
+        g["w"][0, 1, 2] = np.inf
+    if step == BIG_STEP:
+        g = {k: v * 50.0 for k, v in g.items()}
+    return g
+
+
+def test_trajectory_matches_optax():
+    rng = np.random.default_rng(0)
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in SHAPES.items()}
+    init["s"] = np.float32(12.0)          # beyond scalar_max: clamped
+    grads = [_grads(rng, i) for i in range(STEPS)]
+    sched_kw = dict(lr=0.045, lr_batches=7000.0)
+
+    tx = scaled_adam(jsched.EdenSchedule(**sched_kw))
+    params = jax.tree.map(jnp.asarray, init)
+    state = tx.init(params)
+    want = []
+    step_fn = jax.jit(lambda p, s, g: tx.update(g, s, p))
+    for g in grads:
+        upd, state = step_fn(params, state, jax.tree.map(jnp.asarray, g))
+        params = optax.apply_updates(params, upd)
+        want.append(jax.tree.map(np.asarray, params))
+
+    # another leaf order than jax.tree's: the result must not depend on it
+    order = ["w", "z", "b", "s", "a", "x", "c"]
+    tp = {k: torch.tensor(init[k]).requires_grad_() for k in order}
+    opt = ScaledAdam([tp[k] for k in order], EdenSchedule(**sched_kw))
+    for i, g in enumerate(grads):
+        for k in order:
+            tp[k].grad = torch.tensor(g[k])
+        opt.step()
+        for k in order:
+            np.testing.assert_allclose(
+                tp[k].detach().numpy(), want[i][k], rtol=1e-5, atol=2e-6,
+                err_msg=f"step {i} param {k}")
+    assert opt.step_count == STEPS
+    # the infinite norm stayed out of the median buffer
+    assert torch.isfinite(opt.norm_buffer).all()
+    np.testing.assert_allclose(opt.norm_buffer[:STEPS].numpy(),
+                               np.asarray(state.norm_buffer[:STEPS]),
+                               rtol=1e-5)
+
+
+def test_eden_values():
+    j = jsched.EdenSchedule(0.045, lr_batches=7000.0, lr_epochs=6.0,
+                            steps_per_epoch=1000, warmup_batches=500.0)
+    t = EdenSchedule(0.045, lr_batches=7000.0, lr_epochs=6.0,
+                     steps_per_epoch=1000, warmup_batches=500.0)
+    for s in (0, 1, 10, 250, 499, 500, 501, 7000, 25000, 10 ** 6):
+        np.testing.assert_allclose(t(s), float(j(s)), rtol=1e-6,
+                                   err_msg=f"step {s}")
+
+
+def _setup(**over):
+    cfg = {"optimizer": {"type": "ScaledAdam",
+                         "config": {"lr": 0.045, "clipping_scale": 2.0}},
+           "lr_scheduler": {"type": "Eden", "config": {"lr_batches": 7000}}}
+    for k, v in over.items():
+        cfg[k] = v
+    return cfg
+
+
+def test_optim_setup():
+    p = torch.zeros(3, requires_grad=True)
+    opt, sched = OptimSetup(_setup(), [p])
+    assert isinstance(opt, ScaledAdam) and opt.lr is sched
+    np.testing.assert_allclose(sched(100), float(jsched.EdenSchedule(
+        0.045, lr_batches=7000)(100)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("over", [
+    {"optimizer": {"type": "Adam", "config": {}}},
+    {"lr_scheduler": {"type": "Warmup", "config": {}}},
+    {"lr_scheduler": {}},
+    {"seperate_lr": {"apply": True, "config": {"encoder_lr": 1e-3}}}])
+def test_optim_setup_rejects_the_unported(over):
+    with pytest.raises(NotImplementedError):
+        OptimSetup(_setup(**over), [torch.zeros(3, requires_grad=True)])
