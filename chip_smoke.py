@@ -38,6 +38,19 @@ Phases (any failed check raises and the script exits non-zero):
      with 12 attention-weights and 1 fbank launches each, finite losses,
      changed parameters, peak memory, and one profiled step split into its
      phases with the device busy share;
+ 10. (training d) the flagship YAML trained from manifests through
+     speech2text_torch.build_task's main: a synthetic corpus from the seed
+     (128 training utterances of 2-12 s, 32 eval, 8 noise clips, written
+     to a temporary directory), the subword model trained on it, the
+     bucketed pipeline with speed perturbation, add_noise, mix_feats and
+     SpecAugment, 20 steps with a metrics line every 5 and an evaluation
+     (validation losses, greedy WER) and checkpoint every 10; launches
+     (12 attention-weights and 2 fbank per step, 12 + 1 per eval batch),
+     finite logged losses, the checkpoints, then a fresh Trainer that
+     restores step 20 bitwise and takes 2 more steps, one profiled step
+     with its launches and device busy share, and one epoch of steps (one
+     batch of each bucket shape) whose B1 and B2 calls, the noise batch's
+     B2 included, are held against the plain versions;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -50,8 +63,10 @@ into a directory that .gitignore lists). Its public entry points
 DIR/csrc at first use; they are timed in turns with this tree's (earlier,
 this, this, earlier) at every main-path shape, with their host times.
 The kernels' record holds the training path's numbers (phase 9's launches,
-phase 7's times at its shapes) and, under "serve", the serving path's
-(phase 5's launches, phases 3-4's times per request).
+phase 7's times at its shapes), under "serve" the serving path's (phase
+5's launches, phases 3-4's times per request) and under "train_run" phase
+10's launches (the whole run and one step) and the worst error against
+the plain version over its bucket shapes.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -64,6 +79,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +122,11 @@ STEP_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 # the key biases' gradient (exactly 0 in exact arithmetic), against the key
 # weights' largest gradient entry
 SHIFT_FREE_TOL = 1e-3
+# phase 10: the flagship YAML trained from manifests of a synthetic corpus
+RUN_TRAIN_UTTS, RUN_EVAL_UTTS, RUN_NOISE_CLIPS = 128, 32, 8
+RUN_STEPS, RUN_VAL_EVERY, RUN_LOG_EVERY, RUN_RESUME_STEPS = 20, 10, 5, 2
+RUN_KEYS = ("step", "loss", "lr", "utts_per_sec", "frames_per_sec",
+            "simple_loss", "pruned_loss", "train_loss", "grad_norm")
 
 
 def card_line():
@@ -127,6 +148,20 @@ def check_close(name, got, want, rtol, atol):
         raise AssertionError(f"{name}: {int(bad.sum())} elements out of "
                              f"tolerance, max abs err {float(diff.max())}")
     return float(diff.max())
+
+
+def check_mel(name, got, want):
+    """Log-mel features of audio whose quiet bands may lie at rounding
+    level, held in the linear mel domain: within BAND_ENERGY_TOL of the
+    frame's mel energy plus BAND_REL_TOL of the value. Returns the largest
+    error as a share of its frame's mel energy."""
+    lin, want_lin = got.exp(), want.exp()
+    energy = want_lin.sum(-1, keepdim=True)
+    diff = (lin - want_lin).abs()
+    excess = diff - (BAND_ENERGY_TOL * energy + BAND_REL_TOL * want_lin)
+    assert bool((excess <= 0).all()), \
+        f"{name}: {int((excess > 0).sum())} mel values out of tolerance"
+    return float((diff / energy).max())
 
 
 def ragged_lengths(rng, n, lo_s, hi_s, n_max):
@@ -320,14 +355,7 @@ def phase_fbank(card, report):
     xb = torch.from_numpy(band).cuda()
     got_b = fb.fbank_cuda(xb, *ops, T, **kw)
     want_b = fb.fbank_plain(xb, *ops, T, **kw)
-    lin, want_lin = got_b.exp(), want_b.exp()
-    energy = want_lin.sum(-1, keepdim=True)
-    excess = ((lin - want_lin).abs()
-              - (BAND_ENERGY_TOL * energy + BAND_REL_TOL * want_lin))
-    assert bool((excess <= 0).all()), \
-        f"fbank band-limited: {int((excess > 0).sum())} mel values out of " \
-        f"tolerance"
-    band_err = float(((lin - want_lin).abs() / energy).max())
+    band_err = check_mel("fbank band-limited", got_b, want_b)
     silent = (fb.frame_signal(xb, T, cfg.frame_length, cfg.frame_shift)
               == 0).all(-1)
     floor = float(np.log(np.float32(fb.EPSILON)))
@@ -763,6 +791,30 @@ def phase_train_f32(card, report):
 SPANS = ("featurize", "encoder", "joiner_losses", "backward", "optimizer")
 
 
+def profile_summary(prof):
+    """A profiled step's device rows (key, ms, count; kernels and copies,
+    largest first), their busy ms, and the host ms of each span of SPANS.
+    The spans' GPU-side annotations cover kernels already counted and are
+    left out of the rows."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and e.key not in SPANS + ("data",)]
+    rows.sort(key=lambda r: -r[1])
+    spans = {}
+    for e in prof.events():
+        if e.name in SPANS and e.device_type != cuda:
+            spans[e.name] = spans.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    return rows, sum(r[1] for r in rows), spans
+
+
+def spans_text(spans):
+    return ", ".join(f"{name} {spans.get(name, float('nan')):.2f} ms"
+                     for name in SPANS)
+
+
 def phase_train_bf16(card, report):
     """Phase 9: the flagship train step at bench.py's shape."""
     from torch.profiler import ProfilerActivity, profile
@@ -831,25 +883,10 @@ def phase_train_bf16(card, report):
         ts.step(*batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    # device rows: kernels and copies; the spans' GPU-side annotations
-    # cover kernels already counted and are left out
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0
-            and e.key not in SPANS]
-    busy = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    spans = {}
-    for e in prof.events():
-        if e.name in SPANS and e.device_type != cuda:
-            spans[e.name] = spans.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    rows, busy, spans = profile_summary(prof)
     log(f"profiled train step: wall {wall:.2f} ms, device busy {busy:.2f} "
         f"ms ({100 * busy / wall:.1f}%), {sum(r[2] for r in rows)} device "
-        f"ops; host time of its spans: " + ", ".join(
-            f"{name} {spans.get(name, float('nan')):.2f} ms"
-            for name in SPANS), card)
+        f"ops; host time of its spans: {spans_text(spans)}", card)
     for key, ms, n in rows[:12]:
         log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
     report["train_bf16"] = {
@@ -918,6 +955,293 @@ def train_parts(ts, batch, card):
     log("train step parts (median ms, synchronised): " + ", ".join(
         f"{k} {v:.2f}" for k, v in med.items()), card)
     return med
+
+
+# ------------------------------------------------------------ phase 10
+def _finite_record(rec, keys):
+    return all(k in rec and math.isfinite(float(rec[k])) for k in keys)
+
+
+def _same_state(saved, live):
+    """Bitwise equality of two nested dicts/lists of CPU tensors."""
+    if isinstance(saved, dict):
+        return saved.keys() == live.keys() and all(
+            _same_state(saved[k], live[k]) for k in saved)
+    if isinstance(saved, list):
+        return len(saved) == len(live) and all(
+            _same_state(a, b) for a, b in zip(saved, live))
+    if isinstance(saved, torch.Tensor):
+        return saved.dtype == live.dtype and torch.equal(saved, live.cpu())
+    return saved == live
+
+
+def check_run_shapes(trainer, card):
+    """Kernels B1 and B2 held against their plain versions at the shapes
+    the train run gives them: one epoch of a fresh train pipeline (one
+    batch of each bucket shape), each batch a train step whose B1 calls
+    (each layer's inputs and output) and B2 calls (the speech batch after
+    add_noise, the noise batch) are captured and compared: B1 as
+    check_weights does (TOL and half a bf16 ulp of the plain f32 weights,
+    row sums, masked keys), B2 as check_mel does (the corpus's quiet bands
+    near an utterance's end lie at rounding level, where the logs may
+    differ by more than FBANK_TOL; the log-domain error is reported).
+    Every batch is checked before the disagreements, if any, are raised
+    together. Returns one row per batch."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    task = trainer.task
+    n_layers = sum(task.model.encoder.config.num_encoder_layers)
+    pipe = task.make_train_pipeline(seed=trainer.seed,
+                                    pin_memory=trainer.device.type == "cuda")
+    specs = pipe.specs
+    want = {(specs[b].batch_size, specs[b].pcm_len, specs[b].label_len)
+            for b, _ in pipe.batcher.epoch_batches(0)}
+    calls = {"attn_weights": [], "fbank": []}
+    originals = (aw.attn_weights_cuda, fb.fbank_cuda)
+
+    def capture(name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            calls[name].append((tuple(a.detach() if isinstance(
+                a, torch.Tensor) else a for a in args), out.detach()))
+            return out
+        return wrapped
+
+    aw.attn_weights_cuda = capture("attn_weights", originals[0])
+    fb.fbank_cuda = capture("fbank", originals[1])
+    rows, failures = [], []
+
+    def checked(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            failures.append(str(e))
+            return math.nan
+
+    it = iter(pipe)
+    try:
+        for i in range(pipe.batches_per_epoch()):
+            batch = next(it)
+            for v in calls.values():
+                v.clear()
+            out = trainer.train_step(trainer.to_device(batch), 10_000 + i)
+            torch.cuda.synchronize()
+            assert all(math.isfinite(float(v)) for v in out.values()), out
+            shape = (int(batch["pcm"].shape[0]), int(batch["pcm"].shape[1]),
+                     int(batch["label"].shape[1]))
+            assert len(calls["attn_weights"]) == n_layers and \
+                len(calls["fbank"]) == 2, \
+                f"{shape}: {len(calls['attn_weights'])} B1 and " \
+                f"{len(calls['fbank'])} B2 calls"
+            row = {"B": shape[0], "N": shape[1], "U": shape[2],
+                   "noise_N": int(batch["noise_pcm"].shape[1]),
+                   "attn_T": sorted({int(a[0].shape[1])
+                                     for a, _ in calls["attn_weights"]})}
+            with torch.no_grad():
+                row["attn_max_abs_err"] = max(
+                    checked(check_weights, f"train run B1 {shape} layer {j}",
+                            w, *a)
+                    for j, (a, w) in enumerate(calls["attn_weights"]))
+                for what, (a, got) in zip(("speech", "noise"),
+                                          calls["fbank"]):
+                    want_f = fb.fbank_plain(*a)
+                    row[f"fbank_{what}_log_err"] = float(
+                        (got - want_f).abs().max())
+                    row[f"fbank_{what}_err_of_energy"] = checked(
+                        check_mel, f"train run B2 {shape} {what}", got,
+                        want_f)
+            rows.append(row)
+    finally:
+        aw.attn_weights_cuda, fb.fbank_cuda = originals
+        it.close()
+        calls.clear()
+    for r in rows:
+        log(f"train run kernels vs plain at B={r['B']} N={r['N']} U="
+            f"{r['U']} (B1 T {r['attn_T']}, noise N={r['noise_N']}): B1 max "
+            f"abs err {r['attn_max_abs_err']:.3g}; B2 speech "
+            f"{r['fbank_speech_err_of_energy']:.3g} of the frame's mel energy"
+            f" (log {r['fbank_speech_log_err']:.3g}), noise "
+            f"{r['fbank_noise_err_of_energy']:.3g} (log "
+            f"{r['fbank_noise_log_err']:.3g})", card)
+    assert not failures, "\n".join(failures)
+    seen = {(r["B"], r["N"], r["U"]) for r in rows}
+    assert seen == want, f"bucket shapes checked {sorted(seen)}, the " \
+        f"epoch's {sorted(want)}"
+    return rows
+
+
+def phase_train_run(card, report, tmp):
+    """Phase 10: the flagship recipe trained from manifests through
+    speech2text_torch.build_task's main on a synthetic corpus, its
+    evaluations, checkpoints and resume, and one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch import build_task
+    from speech2text_torch.config import load_config
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.tools.synth_corpus import write_corpus
+
+    t0 = time.perf_counter()
+    corpus = write_corpus(os.path.join(tmp, "corpus"), seed=SEED,
+                          n_train=RUN_TRAIN_UTTS, n_eval=RUN_EVAL_UTTS,
+                          n_noise=RUN_NOISE_CLIPS)
+    corpus_s = time.perf_counter() - t0
+    argv = ["--training_config", TRAIN_CFG,
+            "--override", f"task.export_path={tmp}/tasks",
+            "--override", f"dataset.base_dir={tmp}/corpus",
+            "--override", f"trainer.val_check_interval={RUN_VAL_EVERY}",
+            "--override", f"trainer.log_interval={RUN_LOG_EVERY}"]
+    for key, path in corpus.items():
+        argv += ["--override", f"dataset.{key}={path}"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    trainer = build_task.main(argv + ["--max_steps", str(RUN_STEPS)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    task = trainer.task
+    workdir = trainer.workdir
+    enc_cfg = task.model.encoder.config
+    n_layers = sum(enc_cfg.num_encoder_layers)
+
+    # the subword model was trained and is the task's tokenizer
+    backup = load_config(os.path.join(workdir,
+                                      os.path.basename(TRAIN_CFG)))
+    spm = backup["tokenizer"]["config"]["spm_model"]
+    assert spm == os.path.join(workdir, "spm", "tokenizer.model") and \
+        os.path.exists(spm), f"subword model not trained: {spm}"
+    assert type(task.tokenizer).__name__ == "SubwordTokenizer"
+    vocab = task.model.joiner.config.output_dim
+    assert len(task.tokenizer) == vocab, \
+        f"{len(task.tokenizer)} labels for a joiner of {vocab}"
+    # every logged line: JAX's keys, finite values
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == list(
+        range(RUN_LOG_EVERY, RUN_STEPS + 1, RUN_LOG_EVERY)), lines
+    bad = [r for r in lines if not _finite_record(r, RUN_KEYS)]
+    assert not bad, f"metrics lines missing keys or not finite: {bad}"
+    # two evaluations, each with finite validation losses and a WER
+    evals = [h for h in trainer.history if h["eval_s"] > 0]
+    assert [h["step"] for h in evals] == list(
+        range(RUN_VAL_EVERY, RUN_STEPS + 1, RUN_VAL_EVERY)), evals
+    with open(os.path.join(workdir, "checkpoints", "index.json")) as f:
+        index = json.load(f)["checkpoints"]
+    assert sorted(index, key=int) == [str(h["step"]) for h in evals]
+    for step, m in index.items():
+        assert _finite_record(m, ("val_loss", "val_simple_loss",
+                                  "val_pruned_loss", "wer")), (step, m)
+        assert os.path.exists(trainer.ckpt.path(int(step)))
+    # launches: 12 B1 and 2 B2 (speech, noise) per step, 12 + 1 per eval
+    # batch
+    eval_batches = task.make_eval_pipeline().batches_per_epoch()
+    n_eval = len(evals) * eval_batches
+    want = {"attn_weights": n_layers * (RUN_STEPS + n_eval),
+            "fbank": 2 * RUN_STEPS + n_eval}
+    assert launches == want, f"launches {launches}, expected {want}"
+
+    # time: host clock between step ends (no step synchronises), over the
+    # steps after the first that follow no evaluation
+    hist = trainer.history
+    step_ms = [1e3 * (b["end"] - a["end"]) for a, b in zip(hist, hist[1:])
+               if a["eval_s"] == 0.0]
+    med = statistics.median(step_ms)
+    waits = [1e3 * h["data_wait_s"] for h in hist]
+    specs = task.make_train_pipeline().specs
+    buckets = [(s.batch_size, s.pcm_len, s.label_len) for s in specs]
+    log(f"train run (build_task main, flagship bf16, {RUN_TRAIN_UTTS} "
+        f"utterances of 2-12 s, {RUN_STEPS} steps): {run_s:.1f} s "
+        f"(corpus written in {corpus_s:.1f} s); median {med:.2f} ms/step "
+        f"over {len(step_ms)} steps ({min(step_ms):.2f}-{max(step_ms):.2f});"
+        f" loop's utt/s {[round(r['utts_per_sec'], 2) for r in lines]}, "
+        f"frames/s {[round(r['frames_per_sec'], 1) for r in lines]}; "
+        f"data wait median {statistics.median(waits):.3f} ms/step (max "
+        f"{max(waits):.2f}); eval s {[round(h['eval_s'], 2) for h in evals]}"
+        f" over {eval_batches} batches of 16; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} (= {n_layers} B1 and 2"
+        f" B2 per step, {n_layers} + 1 per eval batch)", card)
+    rounded = {s: {k: round(v, 4) for k, v in m.items()}
+               for s, m in index.items()}
+    log(f"train run buckets (B, N samples, U): {buckets}; losses "
+        f"{[round(r['loss'], 3) for r in lines]}; evals {rounded}", card)
+
+    # resume: a fresh Trainer restores the saved step bitwise, then steps on
+    trainer2, fit_kw = build_task.prepare(
+        argv + ["--max_steps", str(RUN_STEPS + RUN_RESUME_STEPS)])
+    assert trainer2.init_state(fit_kw["resume"],
+                               fit_kw["finetune_state"]) == RUN_STEPS
+    saved = trainer2.ckpt.restore(RUN_STEPS)
+    assert _same_state(saved["model"], trainer2.task.model.state_dict()), \
+        "restored weights differ from the checkpoint"
+    assert _same_state(saved["optimizer"], trainer2.optimizer.state_dict()), \
+        "restored ScaledAdam state differs from the checkpoint"
+    assert saved["optimizer"]["step_count"] == RUN_STEPS
+    trainer2.fit(**fit_kw)
+    assert [h["step"] for h in trainer2.history] == list(
+        range(RUN_STEPS + 1, RUN_STEPS + RUN_RESUME_STEPS + 1))
+    last = trainer2.last_eval
+    assert _finite_record(last, ("val_loss", "wer")), last
+    log(f"resume: fresh Trainer restored step {RUN_STEPS} (weights and "
+        f"ScaledAdam state bitwise equal to the file), took steps "
+        f"{[h['step'] for h in trainer2.history]}, eval {last}", card)
+
+    # one profiled step on the first batch of a fresh train pipeline
+    pipe = task.make_train_pipeline(seed=trainer2.seed,
+                                    pin_memory=trainer2.device.type == "cuda")
+    it = iter(pipe)
+    batch = next(it)
+    it.close()
+    dev = trainer2.to_device(batch)
+    step = RUN_STEPS + RUN_RESUME_STEPS
+    trainer2.train_step(dev, step)
+    torch.cuda.synchronize()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = trainer2.train_step(dev, step + 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per_step = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    assert per_step == {"attn_weights": n_layers, "fbank": 2}, per_step
+    assert all(math.isfinite(float(v)) for v in out.values()), out
+    rows, busy, spans = profile_summary(prof)
+    log(f"profiled run step (B={batch['pcm'].shape[0]}, N="
+        f"{batch['pcm'].shape[1]}, U={batch['label'].shape[1]}): wall "
+        f"{wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}"
+        f"%), {sum(r[2] for r in rows)} device ops, launches {per_step}; "
+        f"host time of its spans: {spans_text(spans)}", card)
+
+    shape_checks = check_run_shapes(trainer2, card)
+    trainer2.close()
+    worst = {"attn_weights": max(r["attn_max_abs_err"] for r in shape_checks),
+             "fbank": max(max(r["fbank_speech_log_err"],
+                              r["fbank_noise_log_err"])
+                          for r in shape_checks)}
+    report["train_run"] = {
+        "steps": RUN_STEPS, "run_s": run_s, "corpus_s": corpus_s,
+        "ms_per_step": step_ms, "median_ms": med,
+        "metrics_lines": lines, "data_wait_ms": waits,
+        "eval_s": [h["eval_s"] for h in evals], "eval_batches":
+        eval_batches, "evals": index, "buckets": buckets,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": per_step, "resume_eval": last,
+        "profiled_step": {"B": int(batch["pcm"].shape[0]),
+                          "N": int(batch["pcm"].shape[1]),
+                          "wall_ms": wall, "device_busy_ms": busy,
+                          "span_host_ms": spans,
+                          "top_device_ops": rows[:30]},
+        "kernel_checks": shape_checks, "max_abs_err": worst}
+    del trainer, trainer2, task
+    torch.cuda.empty_cache()
+    return launches, per_step, worst
 
 
 # ------------------------------------------------------------ compare
@@ -1049,6 +1373,9 @@ def main(argv):
     serve_launches = phase_serve(layer_shapes, card, report)
     phase_train_f32(card, report)
     launches = phase_train_bf16(card, report)
+    with tempfile.TemporaryDirectory(prefix="s2t_train_run_") as tmp:
+        run_launches, run_per_step, run_err = phase_train_run(card, report,
+                                                              tmp)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -1065,16 +1392,24 @@ def main(argv):
                              "attn_weights_backward",
              backward_ms=attn_train["backward_ms"],
              serve=dict(launches=serve_launches["attn_weights"],
-                        **{k: attn[k] for k in keys})),
+                        **{k: attn[k] for k in keys}),
+             train_run=dict(launches=run_launches["attn_weights"],
+                            launches_per_step=run_per_step["attn_weights"],
+                            max_abs_err=run_err["attn_weights"])),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
              launches=launches["fbank"], library_ms=None,
              **{k: fbank_train[k] for k in keys},
              serve=dict(launches=serve_launches["fbank"],
-                        **{k: fbank[k] for k in keys})),
+                        **{k: fbank[k] for k in keys}),
+             train_run=dict(launches=run_launches["fbank"],
+                            launches_per_step=run_per_step["fbank"],
+                            max_abs_err=run_err["fbank"])),
     ]
     for k in kernels:
+        assert k["train_run"]["launches"] > 0, \
+            f"{k['name']} never launched in the train run"
         for path in (k, k["serve"]):
             assert path["launches"] > 0, \
                 f"{k['name']} never launched on a path"

@@ -1,0 +1,131 @@
+"""Training entry point of the port (port of the repo's build_task.py).
+
+    python -m speech2text_torch.build_task \\
+      --training_config=configs/training/zipformer_stateless_pruned_rnnt.yaml \\
+      [--override a.b.c=value ...] [--max_steps N] [--device cpu]
+
+YAML → PrunedRnntTask → Trainer.fit, in `<task.export_path>/<task.name>`:
+seeds, `run.log`, the subword model trained from the train manifest
+(tools/spm_train.py), a backup of the resolved config (written with
+config.dumps, read back by config.load_config), finetuning from a port
+checkpoint file or an averaged top-k directory (`finetune.base_model`),
+and resume from the run's latest checkpoint or from `resume`.
+
+Runs on `cuda` unless `--device cpu` or the YAML's `trainer.platform:
+cpu` asks for the CPU; with no CUDA device and no such request it raises
+before it writes anything. Computing global CMVN statistics and the
+frontend export callback are not ported: asking for either raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import dumps, load_config, override
+from .tasks.rnnt import PrunedRnntTask
+from .tools.spm_train import spm_training_preprocess
+from .train.checkpoint import average_checkpoints
+from .train.loop import Trainer, resolve_device
+from .utils.logging import get_logger, init_logging
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="python -m speech2text_torch.build_task",
+        description="Train a task of the port from a training YAML.")
+    ap.add_argument("--training_config", required=True,
+                    help="YAML of the training setup")
+    ap.add_argument("--override", action="append", default=[],
+                    metavar="A.B=V", help="dotted-key config override")
+    ap.add_argument("--max_steps", type=int, default=None,
+                    help="optional step cap")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; the YAML's "
+                         "trainer.platform when not given")
+    return ap.parse_args(argv)
+
+
+def load_finetune(ft: Dict[str, Any]) -> Optional[Dict[str, torch.Tensor]]:
+    """`finetune.base_model`: a checkpoint directory (index.json) → the
+    average of its best `best_k`; a checkpoint file → its weights."""
+    base = ft.get("base_model")
+    if not base:
+        return None
+    if os.path.isdir(base) and os.path.exists(
+            os.path.join(base, "index.json")):
+        return average_checkpoints(base, best_k=int(ft.get("best_k", 5)))
+    return torch.load(base, map_location="cpu", weights_only=True)["model"]
+
+
+def prepare(argv: Optional[List[str]] = None
+            ) -> Tuple[Trainer, Dict[str, Any]]:
+    """Everything before `Trainer.fit`: returns the trainer and fit's
+    keyword arguments."""
+    args = parse_args(argv)
+    config = load_config(args.training_config)
+    for ov in args.override:
+        key, _, value = ov.partition("=")
+        override(config, key, value)
+    trainer_cfg = config.get("trainer") or {}
+    device = resolve_device(args.device, trainer_cfg)
+
+    task_section = config["task"]
+    if task_section["type"] != "Pruned_Rnnt":
+        raise NotImplementedError(f"task {task_section['type']!r} is not "
+                                  f"ported (Pruned_Rnnt only)")
+    cb = config.get("callbacks") or {}
+    cmvn_cb = cb.get("global_cmvn") or {}
+    if cmvn_cb.get("apply") and not (cmvn_cb.get("pre_compute_cmvn") and
+                                     os.path.exists(
+                                         cmvn_cb["pre_compute_cmvn"])):
+        raise NotImplementedError("computing global CMVN statistics is not "
+                                  "ported: give callbacks.global_cmvn."
+                                  "pre_compute_cmvn")
+    if cb.get("frontend_save"):
+        raise NotImplementedError("the frontend export callback is not "
+                                  "ported")
+
+    workdir = os.path.join(task_section["export_path"], task_section["name"])
+    os.makedirs(workdir, exist_ok=True)
+    init_logging(os.path.join(workdir, "run.log"))
+    log = get_logger()
+    seed = int(config.get("seed", 1234))
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    config = spm_training_preprocess(config)
+    # the resolved config (after the tokenizer rewrite) beside the run
+    with open(os.path.join(workdir,
+                           os.path.basename(args.training_config)), "w") as f:
+        f.write(dumps(config))
+    task = PrunedRnntTask(config)
+    log.info("task %s (%s): vocab=%d, device %s", task_section["name"],
+             task_section["type"], len(task.tokenizer), device)
+    finetune_state = load_finetune(config.get("finetune") or {})
+    trainer = Trainer(task, config, workdir, seed=seed, device=device)
+    return trainer, dict(resume=config.get("resume"),
+                         finetune_state=finetune_state,
+                         max_steps=args.max_steps)
+
+
+def main(argv: Optional[List[str]] = None) -> Trainer:
+    """Train as the command line says; returns the Trainer it ran (its
+    `last_eval`, `history` and checkpoints)."""
+    trainer, fit_kwargs = prepare(argv)
+    try:
+        result = trainer.fit(**fit_kwargs)
+    finally:
+        trainer.close()
+    get_logger().info("training done: %s", result)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,9 @@ reads the subset of YAML that the repo's config files use: nested block
 mappings, block lists (`- item`) and flow lists (`[a, b]`) of scalars,
 `{}`, quoted strings, comments, and PyYAML's (YAML 1.1) implicit scalars
 for null, bool, int and float. tests/test_torch_rnnt_serve.py holds the
-reader against `yaml.safe_load` on every file under configs/.
+reader against `yaml.safe_load` on every file under configs/. `dumps`
+writes a config tree in that subset (the training entry's config
+backup).
 """
 
 from __future__ import annotations
@@ -113,6 +115,69 @@ def loads(text: str) -> Dict[str, Any]:
     if i != len(lines):
         raise ValueError(f"cannot parse config line {lines[i][1]!r}")
     return value
+
+
+_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*$")
+
+
+def _dump_scalar(v: Any) -> str:
+    """A scalar as text that `parse_scalar` reads back as `v`."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "e" in text and "." not in text.split("e")[0]:
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    if isinstance(v, str):
+        if "\n" in v or "," in v:
+            raise ValueError(f"cannot write the string {v!r}")
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"cannot write {type(v).__name__} {v!r}")
+
+
+def _dump_key(k: Any) -> str:
+    if ":" in str(k):
+        raise ValueError(f"cannot write the key {k!r}")
+    if isinstance(k, str) and _PLAIN_KEY.match(k) and parse_scalar(k) == k:
+        return k
+    return _dump_scalar(k)
+
+
+def dumps(cfg: Dict[str, Any]) -> str:
+    """A config tree as the YAML subset that `loads` reads back equal:
+    block mappings, flow lists of scalars, quoted strings."""
+    lines: List[str] = []
+
+    def block(node: Dict[str, Any], indent: int) -> None:
+        pad = " " * indent
+        for k, v in node.items():
+            key = _dump_key(k)
+            if isinstance(v, dict):
+                if v:
+                    lines.append(f"{pad}{key}:")
+                    block(v, indent + 2)
+                else:
+                    lines.append(f"{pad}{key}: {{}}")
+            elif isinstance(v, (list, tuple)):
+                if any(isinstance(x, (dict, list, tuple)) for x in v):
+                    raise ValueError(f"cannot write nested list at {k!r}")
+                lines.append(f"{pad}{key}: [" + ", ".join(
+                    _dump_scalar(x) for x in v) + "]")
+            else:
+                lines.append(f"{pad}{key}: {_dump_scalar(v)}")
+
+    block(cfg, 0)
+    return "\n".join(lines) + "\n"
 
 
 def load_config(path: str) -> Dict[str, Any]:

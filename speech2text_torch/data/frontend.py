@@ -26,7 +26,7 @@ class FbankConfig:
     frame_length_ms: float = 25.0
     frame_shift_ms: float = 10.0
     sample_rate: int = 16000
-    dither: float = 0.0  # training only: the port serves, never dithers
+    dither: float = 0.0  # training only, with a generator
     preemphasis: float = 0.97
     remove_dc_offset: bool = True
     low_freq: float = 20.0
@@ -64,6 +64,13 @@ def feat_lengths(cfg: FbankConfig,
                           rounding_mode="floor"), min=0).to(torch.int32)
     return torch.div(n + cfg.frame_shift // 2, cfg.frame_shift,
                      rounding_mode="floor").to(torch.int32)
+
+
+def dequant_pcm(pcm: torch.Tensor) -> torch.Tensor:
+    """int16 wire format → f32 waveform in [-1, 1)."""
+    if pcm.dtype == torch.int16:
+        return pcm.float() * (1.0 / 32768.0)
+    return pcm.float()
 
 
 def povey_window(n: int) -> np.ndarray:
@@ -143,8 +150,11 @@ class Fbank(nn.Module):
     def feat_dim(self) -> int:
         return self.cfg.num_mel_bins
 
-    def forward(self, pcm: torch.Tensor, sample_lengths: torch.Tensor
+    def forward(self, pcm: torch.Tensor, sample_lengths: torch.Tensor,
+                dither_generator: torch.Generator | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`dither_generator` (training) draws the dither noise when the
+        config's dither is > 0."""
         cfg = self.cfg
         max_frames = cfg.num_frames(int(pcm.shape[-1]))
         if max_frames == 0:
@@ -158,7 +168,8 @@ class Fbank(nn.Module):
                           frame_shift=cfg.frame_shift,
                           preemph=cfg.preemphasis,
                           remove_dc=cfg.remove_dc_offset,
-                          snip_edges=cfg.snip_edges)
+                          snip_edges=cfg.snip_edges, dither=cfg.dither,
+                          generator=dither_generator)
         lens = feat_lengths(cfg, torch.as_tensor(sample_lengths,
                                                  device=pcm.device))
         return feats, lens

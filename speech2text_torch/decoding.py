@@ -6,15 +6,31 @@ synchronisation inside: at each frame the joiner scores the encoder frame
 against the predictor output; the argmax is emitted unless it is blank
 (0), the frame is past the utterance, or the utterance already holds
 `max_tokens` tokens; at most `max_token_step` emissions per frame. The
-predictor is primed with token 0. Token-id → text conversion is not
-ported yet.
+predictor is primed with token 0. `ids_to_texts` and `reference_decoder`
+turn token ids and label tensors into text through a tokenizer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
+import numpy as np
 import torch
+
+from .data.tokenizer import Tokenizer
+
+
+def ids_to_texts(tokens: np.ndarray, counts: np.ndarray,
+                 tokenizer: Tokenizer) -> List[str]:
+    """Decoded token rows (B, cap) with their counts (B,) → texts."""
+    return [tokenizer.decode(row[:int(n)]) for row, n in zip(tokens, counts)]
+
+
+def reference_decoder(labels: np.ndarray, label_lengths: np.ndarray,
+                      tokenizer: Tokenizer) -> List[str]:
+    """Ground-truth label tensor → texts."""
+    return [tokenizer.decode(row[:int(n)])
+            for row, n in zip(np.asarray(labels), np.asarray(label_lengths))]
 
 
 class RnntGreedyDecoding:

@@ -5,8 +5,10 @@ a CUDA tensor launches csrc/fbank.cu (snip_edges framing only) or
 raises. The kernel takes the power spectrum by a 512-point FFT, which is
 the transform the DFT matrices hold, and the mel projection over each
 filter's run of non-zero bins (`mel_runs`). `fbank_plain` mirrors
-speech2text_tpu/data/frontend.py:_fbank_impl (without dither: the port
-serves, it does not train), including both framings of `frame_signal`.
+speech2text_tpu/data/frontend.py:_fbank_impl, including both framings of
+`frame_signal` and training-time dither (Gaussian noise of scale `dither`
+added to each frame, drawn from the caller's generator). The kernel has no
+dither: a CUDA tensor with dither > 0 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,11 +54,15 @@ def fbank_plain(pcm: torch.Tensor, window: torch.Tensor,
                 dft_cos: torch.Tensor, dft_sin: torch.Tensor,
                 banks: torch.Tensor, max_frames: int, frame_length: int = 400,
                 frame_shift: int = 160, preemph: float = 0.97,
-                remove_dc: bool = True,
-                snip_edges: bool = True) -> torch.Tensor:
+                remove_dc: bool = True, snip_edges: bool = True,
+                dither: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
     """Plain PyTorch fbank in f32: (B, N) → (B, max_frames, n_mels)."""
     frames = frame_signal(pcm.float(), max_frames, frame_length,
                           frame_shift, snip_edges)
+    if dither > 0.0 and generator is not None:
+        frames = frames + dither * torch.randn(
+            frames.shape, generator=generator, device=frames.device)
     if remove_dc:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemph > 0.0:
@@ -176,14 +182,18 @@ def fbank(pcm: torch.Tensor, window: torch.Tensor, dft_cos: torch.Tensor,
           dft_sin: torch.Tensor, banks: torch.Tensor, max_frames: int,
           frame_length: int = 400, frame_shift: int = 160,
           preemph: float = 0.97, remove_dc: bool = True,
-          snip_edges: bool = True) -> torch.Tensor:
-    """(B, N) pcm → (B, max_frames, n_mels) f32 log-mel features."""
+          snip_edges: bool = True, dither: float = 0.0,
+          generator: torch.Generator | None = None) -> torch.Tensor:
+    """(B, N) pcm → (B, max_frames, n_mels) f32 log-mel features; dither
+    applies only with a generator (training)."""
     if not use_kernel(pcm.device):
         return fbank_plain(pcm, window, dft_cos, dft_sin, banks, max_frames,
                            frame_length, frame_shift, preemph, remove_dc,
-                           snip_edges)
+                           snip_edges, dither, generator)
     if not snip_edges:
         raise NotImplementedError(
             "the fbank kernel frames with snip_edges=True only")
+    if dither > 0.0 and generator is not None:
+        raise NotImplementedError("the fbank kernel has no dither")
     return fbank_cuda(pcm, window, dft_cos, dft_sin, banks, max_frames,
                       frame_length, frame_shift, preemph, remove_dc)

@@ -104,6 +104,36 @@ class ScaledAdam:
         for p in self.params:
             p.grad = None
 
+    _LISTS = ("delta", "exp_avg_sq", "scale_exp_avg_sq", "scale_grads",
+              "param_rms")
+
+    def state_dict(self) -> dict:
+        """The optimizer's whole state as CPU tensors: the host step
+        count, the clipping norms' buffer and each shape group's
+        buffers."""
+        out = {"step_count": self.step_count,
+               "groups": [list(g) for g in self.groups],
+               "norm_buffer": self.norm_buffer.detach().cpu()}
+        for name in self._LISTS:
+            out[name] = [t.detach().cpu() for t in getattr(self, name)]
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output onto the parameters' device;
+        raises if the parameters group differently."""
+        if [list(g) for g in state["groups"]] != [list(g) for g in
+                                                   self.groups]:
+            raise ValueError("optimizer state of other parameter shapes")
+        dev = self.norm_buffer.device
+        self.step_count = int(state["step_count"])
+        self.norm_buffer = state["norm_buffer"].to(dev, copy=True)
+        for name in self._LISTS:
+            mine = getattr(self, name)
+            if len(state[name]) != len(mine) or any(
+                    a.shape != b.shape for a, b in zip(state[name], mine)):
+                raise ValueError(f"optimizer state {name}: shapes differ")
+            setattr(self, name, [t.to(dev, copy=True) for t in state[name]])
+
     def _scalar_group(self, gi: int) -> bool:
         return self.params[self.groups[gi][0]].numel() <= 1
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .config import load_config
-from .data.frontend import Fbank, FrontendSetup
+from .data.frontend import Fbank, FrontendSetup, dequant_pcm
 from .decoding import RnntGreedyDecoding
 from .models.cmvn import GlobalCmvn
 from .tasks.rnnt import RnntModel
@@ -62,13 +62,6 @@ def serving_train_config(infer_cfg: Dict[str, Any]) -> Dict[str, Any]:
         metric["decode_method"] = dec["type"]
         metric.update(dec.get("config") or {})
     return train_cfg
-
-
-def dequant_pcm(pcm: torch.Tensor) -> torch.Tensor:
-    """int16 wire format → f32 waveform in [-1, 1)."""
-    if pcm.dtype == torch.int16:
-        return pcm.float() * (1.0 / 32768.0)
-    return pcm.float()
 
 
 class RnntServer:

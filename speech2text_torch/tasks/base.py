@@ -1,0 +1,154 @@
+"""Shared ASR task plumbing (port of speech2text_tpu/tasks/base.py): the
+tokenizer, the data pipelines and the device-side featurization
+(add_noise → fbank → mix_feats → CMVN → SpecAugment).
+
+`Featurizer` holds the fbank frontend, CMVN and the augmentation config
+of a training YAML; `AsrTaskBase` adds the tokenizer and the pipelines.
+`featurize(batch, generator, training)` draws every augmentation value
+from `generator` (on the batch's device) before it computes, in a fixed
+order (add_noise, mix_feats, SpecAugment, then dither inside the
+frontend), so one generator state gives one result. `draws` given
+explicitly replace the sampled ones; the tests feed the JAX package's
+draws there. The fbank of the speech batch and of the noise batch go
+through kernel B2 on the card. The wav2vec2 pretrained-encoder merge is
+not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ..config import from_dict
+from ..data import augment
+from ..data.dataset import AsrPipeline, DataConfig
+from ..data.frontend import Fbank, FrontendSetup, dequant_pcm, feat_lengths
+from ..data.tokenizer import TokenizerSetup
+from ..models.cmvn import GlobalCmvn
+
+Batch = Dict[str, Any]
+
+
+class Featurizer(nn.Module):
+    """fbank frontend + CMVN + augmentation of a training config's
+    `dataset` and `callbacks` sections."""
+
+    def __init__(self, config: Dict[str, Any]):
+        super().__init__()
+        ds = config.get("dataset") or {}
+        self.frontend = FrontendSetup(ds.get("feat_type", "lhotes_fbank"),
+                                      ds.get("feat_config") or {})
+        if not isinstance(self.frontend, Fbank):
+            raise NotImplementedError("only fbank frontends are ported")
+        self.aug = dict(ds.get("data_aug_config") or {})
+        cmvn_cfg = (config.get("callbacks") or {}).get("global_cmvn") or {}
+        path = cmvn_cfg.get("pre_compute_cmvn")
+        self.cmvn = GlobalCmvn.from_file(path) \
+            if cmvn_cfg.get("apply") and path and os.path.exists(path) \
+            else GlobalCmvn()
+
+    def sample_augmentation(self, batch: Batch, generator: torch.Generator
+                            ) -> Dict[str, augment.Draws]:
+        """The training augmentation's random values for `batch`, as the
+        YAML turns each transform on."""
+        aug, cfg = self.aug, self.frontend.cfg
+        draws: Dict[str, augment.Draws] = {}
+        has_noise = "noise_pcm" in batch
+        if aug.get("use_add_noise") and has_noise:
+            nc = aug.get("add_noise_config") or {}
+            draws["add_noise"] = augment.sample_add_noise(
+                batch["noise_length"], generator,
+                p=float(aug.get("add_noise_proportion", 0.5)),
+                min_snr_db=float(nc.get("min_snr_db", 10)),
+                max_snr_db=float(nc.get("max_snr_db", 50)))
+        if aug.get("use_mix_feats") and has_noise:
+            mc = aug.get("mix_feats_config") or {}
+            draws["mix_feats"] = augment.sample_mix_feats(
+                feat_lengths(cfg, batch["noise_length"]), generator,
+                p=float(aug.get("mix_feats_proportion", 0.5)),
+                snrs=tuple(mc.get("snrs", (10, 20))))
+        if aug.get("use_spec_aug"):
+            sc = aug.get("spec_aug_config") or {}
+            draws["spec_augment"] = augment.sample_spec_augment(
+                feat_lengths(cfg, batch["pcm_length"]), cfg.num_mel_bins,
+                generator,
+                num_time_masks=int(sc.get("num_time_masks", 2)),
+                time_mask_max=int(sc.get("time_mask_max", 50)),
+                num_freq_masks=int(sc.get("num_freq_masks", 2)),
+                freq_mask_max=int(sc.get("freq_mask_max", 10)))
+        return draws
+
+    @torch.no_grad()
+    def featurize(self, batch: Batch,
+                  generator: Optional[torch.Generator] = None,
+                  training: bool = False,
+                  draws: Optional[Dict[str, augment.Draws]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pcm batch (tensors on one device) → (feats (B, T, D),
+        feat_lens); augmented only when training with a generator or
+        draws."""
+        with record_function("featurize"):
+            pcm = dequant_pcm(batch["pcm"])
+            pcm_lens = batch["pcm_length"]
+            if not training or (generator is None and draws is None):
+                feats, lens = self.frontend(pcm, pcm_lens)
+                return self.cmvn(feats), lens
+            if draws is None:
+                draws = self.sample_augmentation(batch, generator)
+            if "add_noise" in draws:
+                pcm = augment.add_noise(pcm, pcm_lens,
+                                        dequant_pcm(batch["noise_pcm"]),
+                                        batch["noise_length"],
+                                        draws["add_noise"])
+            feats, lens = self.frontend(pcm, pcm_lens,
+                                        dither_generator=generator)
+            if "mix_feats" in draws:
+                nfeats, nlens = self.frontend(dequant_pcm(batch["noise_pcm"]),
+                                              batch["noise_length"])
+                feats = augment.mix_feats(feats, lens, nfeats, nlens,
+                                          draws["mix_feats"])
+            feats = self.cmvn(feats)
+            if "spec_augment" in draws:
+                feats = augment.spec_augment(feats, draws["spec_augment"])
+            return feats, lens
+
+
+class AsrTaskBase(Featurizer):
+    """Tokenizer, data config, featurizer and pipelines from a training
+    YAML tree."""
+
+    def __init__(self, config: Dict[str, Any]):
+        super().__init__(config)
+        self.config = config
+        self.tokenizer = TokenizerSetup(config["tokenizer"])
+        ds = dict(config.get("dataset") or {})
+        self.data_config = from_dict(DataConfig, {
+            k: v for k, v in ds.items()
+            if k in DataConfig.__dataclass_fields__})
+
+    def make_train_pipeline(self, shard_index: int = 0, num_shards: int = 1,
+                            seed: int = 17,
+                            pin_memory: bool = False) -> AsrPipeline:
+        return AsrPipeline(self.data_config.train_data, self.tokenizer,
+                           self.data_config, training=True, seed=seed,
+                           shard_index=shard_index, num_shards=num_shards,
+                           pin_memory=pin_memory)
+
+    def make_eval_pipeline(self, shard_index: int = 0, num_shards: int = 1,
+                           pin_memory: bool = False) -> AsrPipeline:
+        return AsrPipeline(self.data_config.eval_data, self.tokenizer,
+                           self.data_config, training=False,
+                           shard_index=shard_index, num_shards=num_shards,
+                           pin_memory=pin_memory)
+
+    def make_test_pipeline(self) -> AsrPipeline:
+        return AsrPipeline(self.data_config.test_data, self.tokenizer,
+                           self.data_config, training=False, keep_text=True)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.tokenizer)

@@ -1,23 +1,30 @@
-"""Transducer model assembly (port of speech2text_tpu/tasks/rnnt.py):
-`RnntModel` (encoder + predictor + joiner) with its training forward and
-the three calls greedy decoding needs, the random chunk choice of
-chunked-causal training (`sample_chunk`) and the pruned RNN-T task loss
-(`PrunedRnntLossFn`)."""
+"""Transducer model assembly and the pruned RNN-T task (port of
+speech2text_tpu/tasks/rnnt.py): `RnntModel` (encoder + predictor +
+joiner) with its training forward and the three calls greedy decoding
+needs, the random chunk choice of chunked-causal training
+(`sample_chunk`), the pruned RNN-T task loss (`PrunedRnntLossFn`) and
+`PrunedRnntTask`: the loss of its YAML (`loss`, taken in training by
+train/step.py:take_step), the evaluation forward with validation losses,
+and greedy hypotheses as text. The int8,
+beam-search and simulated-streaming evaluation branches raise
+NotImplementedError."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
 from ..config import from_dict
+from ..decoding import RnntGreedyDecoding, ids_to_texts
 from ..losses import Loss
 from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
 from ..models.predictor import StatelessPredictor, StatelessPredictorConfig
 from ..models.zipformer import Zipformer2, Zipformer2Config
+from .base import AsrTaskBase, Batch
 
 
 def build_encoder(config: Dict[str, Any]) -> nn.Module:
@@ -133,3 +140,54 @@ class PrunedRnntLossFn:
         return {"loss": self.simple_scale * simple
                 + self.pruned_scale * pruned,
                 "simple_loss": simple, "pruned_loss": pruned}
+
+
+class PrunedRnntTask(AsrTaskBase):
+    """The pruned RNN-T task (tasks/rnnt.py:PrunedRnntTask): tokenizer,
+    featurizer, model, loss and greedy decoding of one training YAML."""
+
+    def __init__(self, config: Dict[str, Any]):
+        if config["joiner"].get("prune_range", -1) <= 0:
+            raise ValueError("PrunedRnntTask requires joiner.prune_range > 0")
+        super().__init__(config)
+        self.model = RnntModel.from_config(config)
+        out_dim = self.model.joiner.config.output_dim
+        if len(self.tokenizer) > out_dim:
+            raise ValueError(f"the tokenizer has {len(self.tokenizer)} "
+                             f"labels, the joiner only {out_dim} outputs")
+        self.loss = PrunedRnntLossFn(config["loss"])
+        metric_cfg = config.get("metric") or {}
+        method = metric_cfg.get("decode_method", "rnnt_greedy_search")
+        if method != "rnnt_greedy_search":
+            raise NotImplementedError(f"decode method {method!r} is not "
+                                      f"ported (rnnt_greedy_search only)")
+        for key in ("int8", "encoder_streaming", "lm_fusion"):
+            if metric_cfg.get(key):
+                raise NotImplementedError(f"metric.{key} is not ported")
+        self.decode_session = RnntGreedyDecoding(
+            self.model.predictor_step, self.model.predictor.init_state,
+            self.model.joiner_step,
+            max_token_step=int(metric_cfg.get("max_token_step", 1)))
+
+    @torch.no_grad()
+    def eval_forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """The full forward without augmentation, dropout or chunking:
+        the encoder output for decoding and the validation losses."""
+        feats, feat_lens = self.featurize(batch, training=False)
+        out = self.model(feats, feat_lens, batch["label"],
+                         batch["label_length"])
+        return {"enc": out["enc"], "enc_lens": out["enc_lens"],
+                **self.eval_loss_metrics(out, batch)}
+
+    def eval_loss_metrics(self, out: Dict[str, torch.Tensor], batch: Batch
+                          ) -> Dict[str, torch.Tensor]:
+        losses = self.loss(out, batch["label"], batch["label_length"])
+        return {"val_simple_loss": losses["simple_loss"],
+                "val_pruned_loss": losses["pruned_loss"],
+                "val_loss": losses["loss"]}
+
+    def eval_hyps(self, eval_out: Dict[str, torch.Tensor]) -> List[str]:
+        tokens, counts = self.decode_session.decode(eval_out["enc"],
+                                                    eval_out["enc_lens"])
+        return ids_to_texts(tokens.cpu().numpy(), counts.cpu().numpy(),
+                            self.tokenizer)

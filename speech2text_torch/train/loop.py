@@ -1,0 +1,329 @@
+"""The training loop (port of speech2text_tpu/train/loop.py:Trainer).
+
+`Trainer(task, config, workdir, seed, device)` trains a `PrunedRnntTask`
+on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
+sets `trainer.platform: cpu`; with no CUDA device and no such request it
+raises. `fit` takes steps until `max_steps` (or `max_epochs` epochs of the
+bucketed pipeline), evaluates and checkpoints every `val_check_interval`
+(a fraction of an epoch, or steps when > 1) and at the last step, and
+resumes from the latest checkpoint of `workdir/checkpoints` (or of
+`resume`) with the pipeline fast-forwarded to the restored step.
+
+Per-step randomness comes from generators seeded from (seed, step,
+stream), as the JAX loop folds the step into its key: augmentation and
+dropout on the device, the chunk choice on the host; so a resumed run
+takes the same steps as one that was never stopped.
+
+No step reads a value back from the card: losses and `grad_norm` stay on
+the device and are read every `log_interval` steps, when a line with the
+JAX loop's keys (step, loss, lr, utts_per_sec, frames_per_sec,
+simple_loss, pruned_loss, train_loss, grad_norm) and the mean data wait
+of the interval (data_wait_ms) goes to `metrics.jsonl` and TensorBoard.
+Batches arrive in pinned host memory (on `cuda`) and are copied without
+blocking. `next(train_iter)` is a `torch.profiler.record_function("data")`
+span, and `history` keeps per step the host clock at its end, its data
+wait and the seconds of an evaluation after it.
+
+Not ported, and refused when the YAML asks for them: a device mesh of
+more than one device (multi-GPU data parallelism), FSDP,
+`accumulate_grad_batches > 1` and the host-RSS watchdog (`max_rss_gb`).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..decoding import reference_decoder
+from ..metrics import AsrMetric
+from ..optim import OptimSetup
+from ..tasks.rnnt import sample_chunk
+from ..utils.logging import get_logger
+from .checkpoint import CheckpointManager
+from .step import take_step
+from .tb_writer import TensorBoardWriter
+
+log = get_logger(__name__)
+
+STREAM_AUGMENT, STREAM_DROPOUT, STREAM_CHUNK = 0, 1, 2
+
+
+def step_seed(seed: int, step: int, stream: int) -> int:
+    """A 63-bit seed that is a function of (seed, step, stream)."""
+    state = np.random.SeedSequence((seed, step, stream)).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def resolve_device(device: Union[str, torch.device, None],
+                   trainer_config: Dict[str, Any]) -> torch.device:
+    """The explicit `device`, else the YAML's `trainer.platform`, else
+    `cuda`; raises for `cuda` without a CUDA device."""
+    dev = torch.device(device or trainer_config.get("platform") or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu "
+                           "or trainer.platform: cpu) to train on the CPU")
+    return dev
+
+
+def _check_unported(tcfg: Dict[str, Any]) -> None:
+    mesh = tcfg.get("mesh") or {}
+    if any(int(mesh.get(axis, 1)) not in (-1, 1)
+           for axis in ("data", "model")):
+        raise NotImplementedError(f"trainer.mesh {mesh}: multi-GPU data or "
+                                  f"model parallelism is not ported")
+    if tcfg.get("fsdp"):
+        raise NotImplementedError("trainer.fsdp is not ported")
+    if int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1:
+        raise NotImplementedError("accumulate_grad_batches > 1 is not "
+                                  "ported")
+    if float(tcfg.get("max_rss_gb", 0) or 0) > 0:
+        raise NotImplementedError("the host-RSS watchdog (max_rss_gb) is "
+                                  "not ported")
+
+
+def _merge_state(model: torch.nn.Module,
+                 loaded: Dict[str, torch.Tensor]) -> int:
+    """Non-strict finetune load: copy the entries of `loaded` whose name
+    and shape match, keep the fresh weights elsewhere; returns how many
+    were copied."""
+    n = 0
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            cand = loaded.get(name)
+            if cand is not None and tuple(cand.shape) == tuple(t.shape):
+                t.copy_(cand)
+                n += 1
+    return n
+
+
+class Trainer:
+
+    def __init__(self, task, config: Dict[str, Any], workdir: str,
+                 seed: int = 17,
+                 device: Union[str, torch.device, None] = None):
+        tcfg = config.get("trainer") or {}
+        _check_unported(tcfg)
+        self.device = resolve_device(device, tcfg)
+        self.task = task
+        self.config = config
+        self.workdir = workdir
+        os.makedirs(workdir, exist_ok=True)
+        self.seed = seed
+        opt_type = config["optim_setup"]["optimizer"]["type"]
+        if tcfg.get("gradient_clip_val") and opt_type != "ScaledAdam":
+            raise NotImplementedError("gradient_clip_val is ported for "
+                                      "ScaledAdam, which clips by itself")
+        task.model.init_weights(torch.Generator().manual_seed(seed))
+        task.to(self.device)
+        self.optimizer = None
+        self.schedule = None
+        self.max_epochs = tcfg.get("max_epochs")
+        self.max_steps = tcfg.get("max_steps")
+        self.val_check_interval = tcfg.get("val_check_interval", 1.0)
+        self.log_interval = int(tcfg.get("log_interval", 50))
+        ck = (config.get("callbacks") or {}).get("model_chkpt_config") or {}
+        self.ckpt = CheckpointManager(
+            os.path.join(workdir, "checkpoints"),
+            save_top_k=int(ck.get("save_top_k", 10)),
+            monitor=ck.get("monitor", "wer"), mode=ck.get("mode", "min"))
+        self._metrics_file = open(os.path.join(workdir, "metrics.jsonl"), "a")
+        self._tb = TensorBoardWriter(os.path.join(workdir, "tb"))
+        self._gens = (torch.Generator(self.device),
+                      torch.Generator(self.device), torch.Generator())
+        self._pin = self.device.type == "cuda"
+        self.history: List[Dict[str, float]] = []
+        self.last_eval: Dict[str, float] = {}
+
+    def close(self) -> None:
+        self._metrics_file.close()
+        self._tb.close()
+
+    # ------------------------------------------------------------- state
+    def init_state(self, resume: Optional[str] = None,
+                   finetune_state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> int:
+        """Finetune weights merged over the seeded init, the optimizer
+        built on them, then the latest checkpoint of `resume` (a
+        checkpoint directory) or of this run restored over both; returns
+        the step to start from."""
+        model = self.task.model
+        if finetune_state is not None:
+            n = _merge_state(model, finetune_state)
+            log.info("loaded finetune base weights (%d tensors)", n)
+        self.optimizer, self.schedule = OptimSetup(
+            self.config["optim_setup"], model.parameters())
+        restored = None
+        if resume:
+            mgr = self.ckpt if os.path.abspath(resume) == \
+                self.ckpt.directory else CheckpointManager(resume)
+            restored = mgr.restore_latest()
+        elif self.ckpt.latest_step() is not None:
+            restored = self.ckpt.restore_latest()
+        if restored is None:
+            return 0
+        step, state = restored
+        if int(state.get("seed", self.seed)) != self.seed:
+            log.warning("checkpoint of seed %s resumed with seed %d: the "
+                        "steps after it differ from the original run's",
+                        state.get("seed"), self.seed)
+        model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        return int(step)
+
+    def save(self, step: int, metrics: Dict[str, float]) -> None:
+        """Checkpoint `step`: copied to the host, then written."""
+        state = {"model": {k: v.detach().cpu() for k, v in
+                           self.task.model.state_dict().items()},
+                 "optimizer": self.optimizer.state_dict(),
+                 "step": step, "seed": self.seed}
+        self.ckpt.save(step, state, metrics=dict(metrics))
+
+    # -------------------------------------------------------------- step
+    def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's arrays as tensors on the device (copied without
+        blocking from pinned memory); lists of strings stay."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                v = torch.from_numpy(v)
+            if isinstance(v, torch.Tensor):
+                v = v.to(self.device, non_blocking=True)
+            out[k] = v
+        return out
+
+    def generators(self, step: int
+                   ) -> Tuple[torch.Generator, torch.Generator,
+                              torch.Generator]:
+        """The step's augmentation, dropout (device) and chunk (host)
+        generators."""
+        for g, stream in zip(self._gens, (STREAM_AUGMENT, STREAM_DROPOUT,
+                                          STREAM_CHUNK)):
+            g.manual_seed(step_seed(self.seed, step, stream))
+        return self._gens
+
+    def train_step(self, batch: Dict[str, Any], step: int
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a device batch: the training featurize
+        (augmentation from the step's generator), the step's chunk, then
+        train/step.py:take_step. Returns the step's metrics (train_loss,
+        simple_loss, pruned_loss, grad_norm, frames) as 0-d tensors on the
+        device."""
+        task = self.task
+        augment_gen, dropout_gen, chunk_gen = self.generators(step)
+        feats, feat_lens = task.featurize(batch, augment_gen, training=True)
+        chunk = sample_chunk(task.model.encoder.config, chunk_gen)
+        metrics = take_step(task.model, task.loss, self.optimizer, feats,
+                            feat_lens, batch["label"], batch["label_length"],
+                            chunk, dropout_gen)
+        metrics["train_loss"] = metrics.pop("loss")
+        return metrics
+
+    # --------------------------------------------------------------- fit
+    def fit(self, resume: Optional[str] = None,
+            finetune_state: Optional[Dict[str, torch.Tensor]] = None,
+            max_steps: Optional[int] = None) -> Dict[str, float]:
+        task = self.task
+        train_pipe = task.make_train_pipeline(seed=self.seed,
+                                              pin_memory=self._pin)
+        steps_per_epoch = max(train_pipe.batches_per_epoch(), 1)
+        if max_steps is None:
+            max_steps = self.max_steps
+        if max_steps is None:
+            max_steps = steps_per_epoch * (self.max_epochs or 1)
+        if self.val_check_interval and self.val_check_interval <= 1.0:
+            val_every = max(int(steps_per_epoch * self.val_check_interval),
+                            1)
+        else:
+            val_every = int(self.val_check_interval)
+
+        step = self.init_state(resume, finetune_state)
+        if step:
+            train_pipe.skip_batches(step)
+            log.info("data pipeline fast-forwarded to batch %d", step)
+        log.info("training: %d steps (%d/epoch) on %s", max_steps,
+                 steps_per_epoch, self.device)
+        hop = task.frontend.cfg.frame_shift
+        t_last = time.time()
+        utts, frames, waits = 0, 0, []
+        metrics: Dict[str, torch.Tensor] = {}
+        train_iter = iter(train_pipe)
+        try:
+            while step < max_steps:
+                t0 = time.perf_counter()
+                with record_function("data"):
+                    batch = next(train_iter)
+                wait = time.perf_counter() - t0
+                waits.append(wait)
+                utts += int(batch["pcm"].shape[0])
+                frames += int(np.asarray(batch["pcm_length"],
+                                         np.int64).sum()) // hop
+                metrics = self.train_step(self.to_device(batch), step)
+                step += 1
+                rec = {"step": step, "end": time.perf_counter(),
+                       "data_wait_s": wait, "eval_s": 0.0}
+                if step % self.log_interval == 0:
+                    self._log(step, metrics, utts, frames, waits,
+                              time.time() - t_last)
+                    t_last, utts, frames, waits = time.time(), 0, 0, []
+                if step % val_every == 0 or step == max_steps:
+                    t0 = time.perf_counter()
+                    self.last_eval = self.evaluate()
+                    self.save(step, self.last_eval)
+                    rec["eval_s"] = time.perf_counter() - t0
+                self.history.append(rec)
+        finally:
+            train_iter.close()
+        return self.last_eval
+
+    def _log(self, step: int, metrics: Dict[str, torch.Tensor], utts: int,
+             frames: int, waits: List[float], dt: float) -> None:
+        host = {k: float(v) for k, v in metrics.items() if k != "frames"}
+        rec = {"step": step, "loss": host.get("train_loss", 0.0),
+               "lr": float(self.schedule(step)),
+               "utts_per_sec": utts / dt, "frames_per_sec": frames / dt,
+               **host,
+               "data_wait_ms": 1e3 * sum(waits) / max(len(waits), 1)}
+        log.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float)
+                          else f"{k}={v}" for k, v in rec.items()))
+        self._metrics_file.write(json.dumps(rec) + "\n")
+        self._metrics_file.flush()
+        for k, v in rec.items():
+            if k != "step":
+                self._tb.add_scalar(f"train/{k}", v, step)
+        self._tb.flush()
+
+    # ---------------------------------------------------------- evaluate
+    def evaluate(self) -> Dict[str, float]:
+        """Validation losses (the mean over eval batches) and greedy WER
+        over one epoch of the eval pipeline."""
+        task = self.task
+        pipe = task.make_eval_pipeline(pin_memory=self._pin)
+        metric = AsrMetric()
+        scalars: Dict[str, list] = {}
+        for batch in pipe:
+            arrays = {k: v for k, v in batch.items()
+                      if not isinstance(v, list)}
+            out = task.eval_forward(self.to_device(arrays))
+            for k, v in out.items():
+                if v.ndim == 0:
+                    scalars.setdefault(k, []).append(float(v))
+            hyps = task.eval_hyps(out)
+            if hyps:
+                refs = reference_decoder(np.asarray(batch["label"]),
+                                         np.asarray(batch["label_length"]),
+                                         task.tokenizer)
+                metric.update(hyps, refs)
+        result = {k: float(np.mean(v)) for k, v in scalars.items()}
+        if metric.num_utts:
+            result["wer"] = metric.compute()
+        log.info("eval: %s (%d utts)",
+                 " ".join(f"{k}={v:.4f}" for k, v in result.items()),
+                 metric.num_utts)
+        return result

@@ -1,16 +1,21 @@
 """The flagship training step (port of bench.py:one_step with the pruned
 task's loss, speech2text_tpu/tasks/rnnt.py:335-354).
 
+`take_step` is the step's body, shared with train/loop.py's Trainer: the
+model in training mode (dropout, feature mask and the chunk drawn for the
+step) → simple_scale·simple + pruned_scale·pruned → backward → gradient
+norm → optimizer step, returning the losses, the gradient norm and the
+output frames as 0-d tensors on the device (reading them waits for the
+card).
+
 `TrainStep.from_config(train_config, device="cuda", seed=0)` builds, from
-a training YAML (a path or a loaded dict), the fbank frontend and CMVN of
-its `dataset`/`callbacks` sections, the model (seeded random weights), the
-loss combination of its `loss` section and ScaledAdam with its schedule
-from `optim_setup`. `step(pcm, pcm_lens, labels, label_lens)` then runs
-featurize (int16 or f32 PCM → fbank through kernel B2 on the card → CMVN;
-no dither or augmentation) → the model in training mode (dropout, feature
-mask and the chunk drawn for the step) → simple_scale·simple +
-pruned_scale·pruned → backward → optimizer step, and returns the three
-losses as 0-d tensors on the device (reading them waits for the card).
+a training YAML (a path or a loaded dict), the featurizer of its
+`dataset`/`callbacks` sections (tasks/base.py), the model (seeded random
+weights), the loss combination of its `loss` section and ScaledAdam with
+its schedule from `optim_setup`, with no tokenizer or data pipeline.
+`step(pcm, pcm_lens, labels, label_lens)` featurizes (int16 or f32 PCM →
+fbank through kernel B2 on the card → CMVN; no dither or augmentation)
+and takes the step on caller-made tensors.
 
 It runs on `cuda` unless the caller passes `device="cpu"`. Dropout and
 feature masks come from a generator on the device, and the chunk choice
@@ -20,25 +25,51 @@ The step's phases are `torch.profiler.record_function` spans, which a
 profiler reads and which cost nothing without one: "featurize",
 "encoder" and "joiner_losses" (predictor, joiner with the simple loss and
 prune ranges, pruned loss; the two model spans are RnntModel.forward's),
-"backward" and "optimizer".
+"backward" and "optimizer" (with the gradient norm).
 """
 
 from __future__ import annotations
 
 import copy
-import os
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..config import load_config
-from ..data.frontend import Fbank, FrontendSetup
-from ..models.cmvn import GlobalCmvn
 from ..optim import OptimSetup
-from ..serve import dequant_pcm
+from ..tasks.base import Featurizer
 from ..tasks.rnnt import PrunedRnntLossFn, RnntModel, sample_chunk
+
+
+def take_step(model: RnntModel, loss_fn: Callable[..., Dict[str, torch.Tensor]],
+              optimizer: torch.optim.Optimizer, feats: torch.Tensor,
+              feat_lens: torch.Tensor, labels: torch.Tensor,
+              label_lens: torch.Tensor, chunk: Tuple[int, int],
+              generator: Optional[torch.Generator]
+              ) -> Dict[str, torch.Tensor]:
+    """One optimizer step on features: `model` in training mode with the
+    chunk `chunk` = (chunk_size, left_context_chunks) and dropout and
+    feature masks from `generator`, `loss_fn` (a PrunedRnntLossFn),
+    backward, the gradient norm before clipping, `optimizer` (ScaledAdam).
+    Returns {"loss", "simple_loss", "pruned_loss", "grad_norm", "frames"}
+    as 0-d tensors on the device."""
+    optimizer.zero_grad()
+    cs, lc = chunk
+    out = model(feats, feat_lens, labels, label_lens, training=True,
+                generator=generator, chunk_size=cs, left_context_chunks=lc)
+    with record_function("joiner_losses"):
+        losses = loss_fn(out, labels, label_lens)
+    with record_function("backward"):
+        losses["loss"].backward()
+    with record_function("optimizer"):
+        with torch.no_grad():
+            grad_norm = torch.nn.utils.get_total_norm(
+                [p.grad for p in model.parameters() if p.grad is not None])
+        optimizer.step()
+    return {**{k: v.detach() for k, v in losses.items()},
+            "grad_norm": grad_norm, "frames": out["enc_lens"].sum()}
 
 
 class TrainStep:
@@ -50,19 +81,10 @@ class TrainStep:
             raise NotImplementedError(f"task {task!r} is not ported "
                                       f"(Pruned_Rnnt only)")
         self.device = torch.device(device)
-        ds = config.get("dataset") or {}
-        self.frontend = FrontendSetup(ds.get("feat_type", "lhotes_fbank"),
-                                      ds.get("feat_config") or {})
-        if not isinstance(self.frontend, Fbank):
-            raise NotImplementedError("only fbank frontends are ported")
-        cmvn_cfg = (config.get("callbacks") or {}).get("global_cmvn") or {}
-        path = cmvn_cfg.get("pre_compute_cmvn")
-        self.cmvn = GlobalCmvn.from_file(path) \
-            if cmvn_cfg.get("apply") and path and os.path.exists(path) \
-            else GlobalCmvn()
+        self.features = Featurizer(config)
         self.model = RnntModel.from_config(config)
         self.model.init_weights(torch.Generator().manual_seed(seed))
-        for m in (self.frontend, self.cmvn, self.model):
+        for m in (self.features, self.model):
             m.to(self.device)
         self.loss_fn = PrunedRnntLossFn(config["loss"])
         self.optimizer, _ = OptimSetup(config["optim_setup"],
@@ -84,30 +106,22 @@ class TrainStep:
         return torch.as_tensor(x).to(self.device)
 
     def featurize(self, pcm, pcm_lens) -> Tuple[torch.Tensor, torch.Tensor]:
-        with torch.no_grad(), record_function("featurize"):
-            feats, lens = self.frontend(dequant_pcm(self._tensor(pcm)),
-                                        self._tensor(pcm_lens))
-            return self.cmvn(feats), lens
+        """tasks/base.py's featurize, without augmentation."""
+        return self.features.featurize({"pcm": self._tensor(pcm),
+                                        "pcm_length": self._tensor(pcm_lens)})
 
     def step(self, pcm, pcm_lens, labels, label_lens,
              chunk: Optional[Tuple[int, int]] = None
              ) -> Dict[str, torch.Tensor]:
-        """One training step; returns {"loss", "simple_loss",
-        "pruned_loss"} of the step's forward, before the update.
-        `chunk` = (chunk_size, left_context_chunks) fixes the chunk choice;
-        by default it is drawn from the encoder config's lists."""
-        self.optimizer.zero_grad()
+        """One training step; returns take_step's {"loss",
+        "simple_loss", "pruned_loss", "grad_norm", "frames"}, the losses
+        of the step's forward, before the update. `chunk` =
+        (chunk_size, left_context_chunks) fixes the chunk choice; by
+        default it is drawn from the encoder config's lists."""
         feats, feat_lens = self.featurize(pcm, pcm_lens)
         labels, label_lens = self._tensor(labels), self._tensor(label_lens)
-        cs, lc = chunk if chunk is not None else sample_chunk(
-            self.model.encoder.config, self.host_generator)
-        out = self.model(feats, feat_lens, labels, label_lens, training=True,
-                         generator=self.generator, chunk_size=cs,
-                         left_context_chunks=lc)
-        with record_function("joiner_losses"):
-            losses = self.loss_fn(out, labels, label_lens)
-        with record_function("backward"):
-            losses["loss"].backward()
-        with record_function("optimizer"):
-            self.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        if chunk is None:
+            chunk = sample_chunk(self.model.encoder.config,
+                                 self.host_generator)
+        return take_step(self.model, self.loss_fn, self.optimizer, feats,
+                         feat_lens, labels, label_lens, chunk, self.generator)

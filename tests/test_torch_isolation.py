@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor speech2text_tpu, and
-its kernel wrappers never compute a CUDA tensor on the CPU."""
+"""The port stands alone: it imports neither jax nor speech2text_tpu, its
+kernel wrappers never compute a CUDA tensor on the CPU, and its training
+entry points run on the card unless the caller asks for the CPU: with no
+card and no such request they raise."""
 
 import ast
 import os
@@ -22,7 +24,10 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import speech2text_torch, speech2text_torch.serve, "
         "speech2text_torch.convert, speech2text_torch.train.step, "
-        "speech2text_torch.optim, speech2text_torch.losses\n"
+        "speech2text_torch.optim, speech2text_torch.losses, "
+        "speech2text_torch.build_task, speech2text_torch.train.loop, "
+        "speech2text_torch.data.dataset, speech2text_torch.tasks.base, "
+        "speech2text_torch.tools.synth_corpus\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
@@ -73,3 +78,32 @@ def test_cuda_tensors_take_the_kernel(monkeypatch, tmp_path):
             fb(torch.zeros((1, 800), device="cuda"),
                torch.tensor([800], device="cuda"))
     assert kernel.launches == 0
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_trainer_raises_without_card(monkeypatch, tmp_path):
+    from speech2text_torch.train.loop import Trainer, resolve_device
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None, {"platform": "cuda"})
+    assert resolve_device(None, {"platform": "cpu"}).type == "cpu"
+    assert resolve_device("cpu", {"platform": "cuda"}).type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(None, {"trainer": {}}, str(tmp_path / "w"))
+    assert not (tmp_path / "w").exists()
+
+
+def test_build_task_raises_without_card(monkeypatch, tmp_path):
+    from speech2text_torch import build_task
+    _no_card(monkeypatch)
+    cfg = PKG.parent / "configs" / "training" / \
+        "zipformer_stateless_pruned_rnnt.yaml"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task.prepare([f"--training_config={cfg}",
+                            f"--override=task.export_path={tmp_path}"])
+    assert not any(tmp_path.iterdir())

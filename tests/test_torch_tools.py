@@ -49,3 +49,18 @@ def test_device_ms_record_count(monkeypatch, records, ok):
     else:
         with pytest.raises(RuntimeError, match=f"holds {records} kernels"):
             timing.device_ms(lambda: calls.append(1), "k")
+
+
+@pytest.mark.parametrize("counts,want_calls", [((23, 30), 70),
+                                               ((20, 26, 27), 100)])
+def test_device_ms_retakes_a_short_trace(monkeypatch, counts, want_calls):
+    """A trace short of records is taken again (up to three traces)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    seq = iter(counts)
+    monkeypatch.setattr(timing, "kernel_durations_ms",
+                        lambda prof, name: [0.25] * next(seq))
+    calls = []
+    assert timing.device_ms(lambda: calls.append(1), "k") == 0.25
+    assert len(calls) == want_calls
