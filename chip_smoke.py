@@ -51,6 +51,21 @@ Phases (any failed check raises and the script exits non-zero):
      with its launches and device busy share, and one epoch of steps (one
      batch of each bucket shape) whose B1 and B2 calls, the noise batch's
      B2 included, are held against the plain versions;
+ 11. (decoding) phase 10's eval set decoded with phase 10's checkpoints
+     through speech2text_torch.inference's main: (a) the flagship beam
+     YAML (averaged checkpoints, W=4, K=4): the report, 12 B1 and 1 B2
+     launches per test batch, one test batch's B1 and B2 calls against
+     the plain versions, the time of featurize / encode / decode per
+     batch, one profiled batch's device busy share; (b) the greedy YAML
+     through the same entry; (c) beam at W=1, K=1 gives greedy's tokens
+     (bf16), with phase 10's weights and with seeded ones (phase 10's
+     20 steps leave a model that emits almost nothing); (d) an f32 beam
+     W=4 request through RnntServer on the card and on the CPU gives the
+     same tokens; (e) shallow fusion with a seeded RnnLm at
+     configs/training/rnn_lm.yaml's dims (lm_weight 0.3; lm_weight 0
+     gives the unfused tokens, with both weights); (f) streaming.
+     is_encoder_streaming: every B1 launch of a test batch carries the
+     chunk mask;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -64,9 +79,11 @@ DIR/csrc at first use; they are timed in turns with this tree's (earlier,
 this, this, earlier) at every main-path shape, with their host times.
 The kernels' record holds the training path's numbers (phase 9's launches,
 phase 7's times at its shapes), under "serve" the serving path's (phase
-5's launches, phases 3-4's times per request) and under "train_run" phase
+5's launches, phases 3-4's times per request), under "train_run" phase
 10's launches (the whole run and one step) and the worst error against
-the plain version over its bucket shapes.
+the plain version over its bucket shapes, and under "infer" phase 11's
+(the flagship beam YAML's run: launches, per test batch, and the worst
+error of the test batches checked).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -127,6 +144,11 @@ RUN_TRAIN_UTTS, RUN_EVAL_UTTS, RUN_NOISE_CLIPS = 128, 32, 8
 RUN_STEPS, RUN_VAL_EVERY, RUN_LOG_EVERY, RUN_RESUME_STEPS = 20, 10, 5, 2
 RUN_KEYS = ("step", "loss", "lr", "utts_per_sec", "frames_per_sec",
             "simple_loss", "pruned_loss", "train_loss", "grad_norm")
+RUN_LAYERS = 12
+# phase 11: decoding phase 10's eval set with its checkpoints
+BEAM_CFG = "configs/inference/zipformer_stateless_pruned_rnnt_beam_search.yaml"
+LM_CFG = "configs/training/rnn_lm.yaml"
+LM_WEIGHT = 0.3
 
 
 def card_line():
@@ -958,6 +980,36 @@ def train_parts(ts, batch, card):
 
 
 # ------------------------------------------------------------ phase 10
+class KernelCalls(dict):
+    """While open, every B1 and B2 launch is recorded here (under
+    "attn_weights" and "fbank": a list of (arguments, output)); `close`
+    puts the wrappers back and drops the records."""
+
+    def __init__(self):
+        from speech2text_torch.ops import attn_weights as aw
+        from speech2text_torch.ops import fbank as fb
+        super().__init__(attn_weights=[], fbank=[])
+        self._wrapped = ((aw, "attn_weights_cuda", aw.attn_weights_cuda,
+                          "attn_weights"),
+                         (fb, "fbank_cuda", fb.fbank_cuda, "fbank"))
+        for mod, attr, fn, name in self._wrapped:
+            setattr(mod, attr, self._capture(name, fn))
+
+    def _capture(self, name, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            self[name].append((tuple(a.detach() if isinstance(
+                a, torch.Tensor) else a for a in args), out.detach()))
+            return out
+        return wrapped
+
+    def close(self):
+        for mod, attr, fn, _ in self._wrapped:
+            setattr(mod, attr, fn)
+        for v in self.values():
+            v.clear()
+
+
 def _finite_record(rec, keys):
     return all(k in rec and math.isfinite(float(rec[k])) for k in keys)
 
@@ -987,7 +1039,6 @@ def check_run_shapes(trainer, card):
     differ by more than FBANK_TOL; the log-domain error is reported).
     Every batch is checked before the disagreements, if any, are raised
     together. Returns one row per batch."""
-    from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import fbank as fb
     task = trainer.task
     n_layers = sum(task.model.encoder.config.num_encoder_layers)
@@ -996,19 +1047,6 @@ def check_run_shapes(trainer, card):
     specs = pipe.specs
     want = {(specs[b].batch_size, specs[b].pcm_len, specs[b].label_len)
             for b, _ in pipe.batcher.epoch_batches(0)}
-    calls = {"attn_weights": [], "fbank": []}
-    originals = (aw.attn_weights_cuda, fb.fbank_cuda)
-
-    def capture(name, fn):
-        def wrapped(*args):
-            out = fn(*args)
-            calls[name].append((tuple(a.detach() if isinstance(
-                a, torch.Tensor) else a for a in args), out.detach()))
-            return out
-        return wrapped
-
-    aw.attn_weights_cuda = capture("attn_weights", originals[0])
-    fb.fbank_cuda = capture("fbank", originals[1])
     rows, failures = [], []
 
     def checked(fn, *args):
@@ -1019,6 +1057,7 @@ def check_run_shapes(trainer, card):
             return math.nan
 
     it = iter(pipe)
+    calls = KernelCalls()
     try:
         for i in range(pipe.batches_per_epoch()):
             batch = next(it)
@@ -1052,9 +1091,8 @@ def check_run_shapes(trainer, card):
                         want_f)
             rows.append(row)
     finally:
-        aw.attn_weights_cuda, fb.fbank_cuda = originals
+        calls.close()
         it.close()
-        calls.clear()
     for r in rows:
         log(f"train run kernels vs plain at B={r['B']} N={r['N']} U="
             f"{r['U']} (B1 T {r['attn_T']}, noise N={r['noise_N']}): B1 max "
@@ -1241,7 +1279,307 @@ def phase_train_run(card, report, tmp):
         "kernel_checks": shape_checks, "max_abs_err": worst}
     del trainer, trainer2, task
     torch.cuda.empty_cache()
-    return launches, per_step, worst
+    return launches, per_step, worst, {"workdir": workdir, "corpus": corpus}
+
+
+# ------------------------------------------------------------ phase 11
+def check_batch_calls(calls, label, n_layers):
+    """One test batch's B1 calls (one per layer) and B2 call against the
+    plain versions, as phase 10 holds them; returns the worst errors (B1
+    abs, B2 log-domain) and each B1 call's mask."""
+    from speech2text_torch.ops import fbank as fb
+    assert len(calls["attn_weights"]) == n_layers and \
+        len(calls["fbank"]) == 1, f"{label}: " \
+        f"{len(calls['attn_weights'])} B1 and {len(calls['fbank'])} B2 calls"
+    with torch.no_grad():
+        b1 = max(check_weights(f"{label} B1 layer {j}", w, *a)
+                 for j, (a, w) in enumerate(calls["attn_weights"]))
+        (a, got), = calls["fbank"]
+        want = fb.fbank_plain(*a)
+        check_mel(f"{label} B2", got, want)
+        b2 = float((got - want).abs().max())
+    return {"attn_weights": b1, "fbank": b2}, \
+        [a[4] for a, _ in calls["attn_weights"]]
+
+
+def device_batches(task, device):
+    """The task's test batches, on `device`."""
+    from speech2text_torch.inference import to_device
+    return [to_device(b, device) for b in task.make_test_pipeline()]
+
+
+def infer_parts(task, batches):
+    """Per test batch, each part ended by a synchronise: featurize, the
+    encoder (chunk-masked under encoder_streaming), decode. Returns the
+    seconds of each part per batch and the hypotheses' token counts."""
+    sync = torch.cuda.synchronize
+    parts = {"featurize": [], "encode": [], "decode": []}
+    tokens = 0
+    with torch.no_grad():
+        for batch in batches:
+            sync()
+            t0 = time.perf_counter()
+            feats, lens = task.featurize(batch)
+            sync()
+            t1 = time.perf_counter()
+            enc, enc_lens = task.model.encoder(feats, lens, *task.streaming)
+            sync()
+            t2 = time.perf_counter()
+            _, counts = task.decode_session.decode(enc, enc_lens)
+            sync()
+            t3 = time.perf_counter()
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(v)
+            tokens += int(counts.sum())
+    return parts, tokens
+
+
+def same_tokens(task, dec_a, dec_b, batches, what):
+    """Two decoders on each test batch's encoder output (the task's
+    model): identical tokens and counts; returns the tokens emitted."""
+    n = 0
+    for batch in batches:
+        enc = task.eval_forward(batch, losses=False)
+        a = dec_a.decode(enc["enc"], enc["enc_lens"])
+        b = dec_b.decode(enc["enc"], enc["enc_lens"])
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), what
+        n += int(a[1].sum())
+    return n
+
+
+def run_inference(name, argv, card, n_layers):
+    """speech2text_torch.inference's main with the kernel counts set to 0
+    just before it and read just after; checks the report (a block for
+    every row of every test batch, which covers each eval utterance: the
+    bucketed test pipeline, as JAX's, tops a bucket's last batch up with
+    repeats; a finite corpus WER) and the launches (n_layers B1 and 1 B2
+    per test batch)."""
+    from speech2text_torch import inference
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    run = inference.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    run.update(wall_s=wall, launches=launches,
+               peak=torch.cuda.max_memory_allocated())
+    with open(run["report"]) as f:
+        lines = f.read().splitlines()
+    last = lines[-1]
+    utts = [line for line in lines if line.startswith("utt: ")]
+    assert len(utts) == run["num_utts"] and \
+        len(set(utts)) == RUN_EVAL_UTTS, \
+        f"{name}: {len(utts)} report blocks of {len(set(utts))} utterances"
+    assert last == f"corpus wer: {run['wer']:.4f} ({len(utts)} utts)" \
+        and math.isfinite(run["wer"]), f"{name}: {last!r}"
+    want = {"attn_weights": n_layers * run["batches"],
+            "fbank": run["batches"]}
+    assert launches == want, f"{name}: launches {launches}, expected {want}"
+    log(f"infer {name}: inference.main {wall:.2f} s for {run['batches']} "
+        f"test batches, corpus WER {run['wer']:.4f}, peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB, launches {launches}", card)
+    return run
+
+
+def timed_parts(name, task, batches, card, report):
+    parts, tokens = infer_parts(task, batches)
+    per = {k: statistics.mean(v) for k, v in parts.items()}
+    total = sum(per.values())
+    utts = sum(int(b["pcm"].shape[0]) for b in batches)
+    log(f"infer {name}: s per test batch (mean of {len(batches)}, B "
+        f"{[int(b['pcm'].shape[0]) for b in batches]}): featurize "
+        f"{per['featurize']:.4f}, encode {per['encode']:.4f}, decode "
+        f"{per['decode']:.4f}, total {total:.4f} (decode "
+        f"{100 * per['decode'] / total:.1f} %); "
+        f"{utts / (total * len(batches)):.2f} utt/s; {tokens} tokens", card)
+    report[name] = {"parts_s": parts, "mean_s": per, "total_s": total,
+                    "utt_per_s": utts / (total * len(batches)),
+                    "tokens": tokens}
+
+
+def phase_infer(card, report, tmp, trained):
+    """Phase 11: decode phase 10's eval set with phase 10's checkpoints
+    through speech2text_torch.inference's main."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.config import load_config
+    from speech2text_torch.models.rnn_lm import RnnLm, RnnLmConfig
+    from speech2text_torch.serve import RnntServer
+    from speech2text_torch.tasks.rnnt import RnntModel, decoding_of
+    from speech2text_torch.train.checkpoint import CheckpointManager
+    out = {}
+    train_cfg = os.path.join(trained["workdir"], os.path.basename(TRAIN_CFG))
+
+    def argv(cfg, name, *extra):
+        args = ["--inference_config", cfg,
+                "--override", f"task.train_config={train_cfg}",
+                "--override", f"task.export_path={tmp}/infer/{name}",
+                "--override",
+                f"testset.test_data={trained['corpus']['eval_data']}"]
+        for ov in extra:
+            args += ["--override", ov]
+        return args
+
+    # (a) the flagship beam YAML: averaged checkpoints, W=4, K=4
+    beam = run_inference("beam", argv(BEAM_CFG, "beam"), card,
+                         RUN_LAYERS)
+    task = beam["task"]
+    n_layers = sum(task.model.encoder.config.num_encoder_layers)
+    assert n_layers == RUN_LAYERS
+    metric = beam["train_config"]["metric"]
+    assert metric["decode_method"] == "rnnt_beam_search" and \
+        (metric["beam_size"], metric["cutoff_top_k"]) == (4, 4)
+    assert beam["infer_config"]["task"]["chkpt_aver"]
+    batches = device_batches(task, beam["device"])
+    seeded_model = RnntModel.from_config(beam["train_config"])
+    seeded_model.init_weights(torch.Generator().manual_seed(SEED + 14))
+    seeded = seeded_model.state_dict()
+    calls = KernelCalls()
+    try:
+        task.eval_forward(batches[-1], losses=False)
+        errs, masks = check_batch_calls(calls, "infer test batch",
+                                        n_layers)
+    finally:
+        calls.close()
+    assert all(torch.equal(m, m.transpose(1, 2)) for m in masks), \
+        "full-context B1 masks are not symmetric"
+    timed_parts("beam", task, batches, card, out)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = task.eval_forward(batches[-1], losses=False)
+        task.decode_session.decode(enc["enc"], enc["enc_lens"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows, busy, _ = profile_summary(prof)
+    log(f"profiled beam test batch (B={batches[-1]['pcm'].shape[0]}, N="
+        f"{batches[-1]['pcm'].shape[1]}): wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[2] for r in rows)} device ops", card)
+    for key, ms, n in rows[:8]:
+        log(f"  {ms:8.3f} ms  x{n:<6d} {key[:90]}", card)
+    out["profiled_beam_batch"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                  "top_device_ops": rows[:20]}
+
+    # (b) greedy through the same entry and checkpoint selection; (c) beam
+    # at W=1, K=1 gives the greedy tokens on the same encoder output
+    greedy = run_inference("greedy", argv(CFG, "greedy"), card, n_layers)
+    gtask = greedy["task"]
+    timed_parts("greedy", gtask, batches, card, out)
+    beam1 = decoding_of({"decode_method": "rnnt_beam_search",
+                         "beam_size": 1, "cutoff_top_k": 1}, gtask.model,
+                        None, 0.0)
+    what = "beam W=1, K=1 tokens differ from greedy's"
+    n_trained = same_tokens(gtask, gtask.decode_session, beam1, batches,
+                            what)
+    gtask.model.load_state_dict(seeded)
+    n_seeded = same_tokens(gtask, gtask.decode_session, beam1, batches,
+                           what)
+    assert n_seeded > 0, "the seeded model emitted no token"
+    log(f"infer beam W=1 K=1 = greedy (bf16), tokens identical over "
+        f"{len(batches)} test batches: {n_trained} with phase 10's "
+        f"weights, {n_seeded} with seeded weights", card)
+    del greedy, gtask
+
+    # (d) f32 beam W=4 on the card against the same module on the CPU
+    cfg32 = load_config(BEAM_CFG)
+    train32 = load_config(train_cfg)
+    train32["encoder"]["config"]["dtype"] = "float32"
+    cfg32["task"]["train_config"] = train32
+    pcm, lens = requests(np.random.default_rng(SEED + 11), 1, 2, 2, 3)[0]
+    dev_out = []
+    for dev in ("cuda", "cpu"):
+        server = RnntServer(cfg32, device=dev, seed=SEED + 12)
+        assert server.decoder._W == 4
+        dev_out.append(server.transcribe(pcm, lens))
+    (tg, cg), (tc, cc) = dev_out
+    assert torch.equal(cg.cpu(), cc) and torch.equal(tg.cpu(), tc), \
+        "f32 beam tokens differ between card and CPU"
+    log(f"infer f32 beam W=4 B=2 3 s: {int(cc.sum())} tokens identical on "
+        f"the card and the CPU", card)
+    del server
+
+    # (e) shallow fusion with a seeded RnnLm at rnn_lm.yaml's dims
+    lm_dims = load_config(LM_CFG)["lm"]["config"]
+    vocab = task.model.joiner.config.output_dim
+    lm = RnnLm(RnnLmConfig(num_symbols=vocab, **lm_dims))
+    lm.init_weights(torch.Generator().manual_seed(SEED + 13))
+    lm_dir = os.path.join(tmp, "lm", "checkpoints")
+    CheckpointManager(lm_dir, monitor="acc", mode="max").save(
+        1, {"model": lm.state_dict(), "step": 1, "seed": SEED + 13},
+        {"acc": 0.5})
+    fused = run_inference(
+        "beam+lm", argv(BEAM_CFG, "beam_lm",
+                        f"decoding.config.lm_fusion.checkpoint_dir={lm_dir}",
+                        f"decoding.config.lm_fusion.lm_weight={LM_WEIGHT}",
+                        *(f"decoding.config.lm_fusion.lm_config.{k}={v}"
+                          for k, v in lm_dims.items())), card, n_layers)
+    ftask = fused["task"]
+    assert ftask.lm is not None and ftask.decode_session._lm_weight == \
+        LM_WEIGHT
+    timed_parts("beam_lm", ftask, batches, card, out)
+    zero = decoding_of(metric, ftask.model, ftask.lm, 0.0)
+    plain = decoding_of(metric, ftask.model, None, 0.0)
+    what = "lm_weight 0 tokens differ from unfused decoding"
+    n_trained = same_tokens(ftask, zero, plain, batches, what)
+    ftask.model.load_state_dict(seeded)
+    n_seeded = same_tokens(ftask, zero, plain, batches, what)
+    assert n_seeded > 0, "the seeded model emitted no token"
+    moved = 0
+    for batch in batches:
+        enc = ftask.eval_forward(batch, losses=False)
+        a = ftask.decode_session.decode(enc["enc"], enc["enc_lens"])
+        b = plain.decode(enc["enc"], enc["enc_lens"])
+        moved += int(((a[0] != b[0]).any(1) | (a[1] != b[1])).sum())
+    rows = sum(int(b["pcm"].shape[0]) for b in batches)
+    log(f"infer beam+lm: lm_weight 0 gives the unfused tokens ({n_trained} "
+        f"with phase 10's weights, {n_seeded} with seeded weights); "
+        f"lm_weight {LM_WEIGHT} changes {moved} of {rows} rows' tokens "
+        f"with seeded weights; corpus WER {fused['wer']:.4f} against "
+        f"{beam['wer']:.4f} unfused", card)
+    out["lm_rows_changed"] = [moved, rows]
+    del fused, ftask, zero, plain
+
+    # (f) simulated streaming: B1 launched with the chunk mask
+    stream = run_inference("streaming", argv(
+        BEAM_CFG, "streaming", "streaming.is_encoder_streaming=true"),
+        card, n_layers)
+    stask = stream["task"]
+    assert stask.streaming == (32, 4)
+    calls = KernelCalls()
+    try:
+        stask.eval_forward(batches[-1], losses=False)
+        serrs, masks = check_batch_calls(calls, "streaming test batch",
+                                         n_layers)
+    finally:
+        calls.close()
+    chunked = sum(not torch.equal(m, m.transpose(1, 2)) for m in masks)
+    assert chunked == n_layers, \
+        f"{chunked} of {n_layers} B1 launches carried a chunk mask"
+    log(f"infer streaming: every B1 launch of a test batch carried the "
+        f"chunk mask (32 frames, 4 chunks left); corpus WER "
+        f"{stream['wer']:.4f} against {beam['wer']:.4f} full context", card)
+    del stream, stask
+    worst = {k: max(errs[k], serrs[k]) for k in errs}
+    log(f"infer kernels vs plain on a test batch: B1 "
+        f"{worst['attn_weights']:.3g}, B2 log {worst['fbank']:.3g}", card)
+    out.update(
+        batches=beam["batches"], wer={"beam": beam["wer"]},
+        main_wall_s={"beam": beam["wall_s"]},
+        peak_memory_bytes=beam["peak"], launches=beam["launches"],
+        max_abs_err=worst)
+    report["infer"] = out
+    per_batch = {k: v // beam["batches"] for k, v in beam["launches"].items()}
+    launches = beam["launches"]
+    del beam, task
+    torch.cuda.empty_cache()
+    return launches, per_batch, worst
 
 
 # ------------------------------------------------------------ compare
@@ -1374,8 +1712,10 @@ def main(argv):
     phase_train_f32(card, report)
     launches = phase_train_bf16(card, report)
     with tempfile.TemporaryDirectory(prefix="s2t_train_run_") as tmp:
-        run_launches, run_per_step, run_err = phase_train_run(card, report,
-                                                              tmp)
+        run_launches, run_per_step, run_err, run = phase_train_run(
+            card, report, tmp)
+        infer_launches, infer_per_batch, infer_err = phase_infer(
+            card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -1395,7 +1735,10 @@ def main(argv):
                         **{k: attn[k] for k in keys}),
              train_run=dict(launches=run_launches["attn_weights"],
                             launches_per_step=run_per_step["attn_weights"],
-                            max_abs_err=run_err["attn_weights"])),
+                            max_abs_err=run_err["attn_weights"]),
+             infer=dict(launches=infer_launches["attn_weights"],
+                        launches_per_batch=infer_per_batch["attn_weights"],
+                        max_abs_err=infer_err["attn_weights"])),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -1405,11 +1748,15 @@ def main(argv):
                         **{k: fbank[k] for k in keys}),
              train_run=dict(launches=run_launches["fbank"],
                             launches_per_step=run_per_step["fbank"],
-                            max_abs_err=run_err["fbank"])),
+                            max_abs_err=run_err["fbank"]),
+             infer=dict(launches=infer_launches["fbank"],
+                        launches_per_batch=infer_per_batch["fbank"],
+                        max_abs_err=infer_err["fbank"])),
     ]
     for k in kernels:
-        assert k["train_run"]["launches"] > 0, \
-            f"{k['name']} never launched in the train run"
+        for path in ("train_run", "infer"):
+            assert k[path]["launches"] > 0, \
+                f"{k['name']} never launched on the {path} path"
         for path in (k, k["serve"]):
             assert path["launches"] > 0, \
                 f"{k['name']} never launched on a path"

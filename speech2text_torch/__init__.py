@@ -5,8 +5,11 @@ The JAX package beside it is the reference this port is held against
 (tests/test_torch_*.py). This package imports torch, numpy and the
 standard library only: never jax, flax or speech2text_tpu.
 
-Covered so far: zipformer pruned-RNN-T greedy serving
-(`serve.RnntServer`) and its training step (`train.step.TrainStep`:
+Covered so far: zipformer pruned-RNN-T serving (`serve.RnntServer`),
+decoding a test set (`python -m speech2text_torch.inference`: greedy or
+beam search, RNN-LM shallow fusion, simulated streaming, checkpoint
+averaging), training from manifests (`python -m
+speech2text_torch.build_task`) and the training step (`train.step.TrainStep`:
 the transducer lattice losses in `ops/rnnt.py` and `ops/pruned_rnnt.py`,
 `losses.py`, ScaledAdam + Eden in `optim/`), with hand-written CUDA
 kernels for the log-mel fbank (`ops/fbank.py`, `csrc/fbank.cu`) and the

@@ -16,6 +16,13 @@ Module names map one to one, except `stack{i}` → `stacks.{i}`,
 `layer{i}` → `layers.{i}` and the feedforward's `in` → `in_`. Unknown
 keys, missing keys, shape mismatches and the `scan_layers` layout (a
 stacked `layers` subtree) raise.
+
+The LSTM layers of models/rnn_lm.py (flax `rnns_{i}/cell`, an
+OptimizedLSTMCell with kernels `ii, if, ig, io` (in, H) without bias and
+`hi, hf, hg, ho` (H, H) with bias) go into the `nn.LSTM` named `rnns`:
+`weight_ih_l{i}` / `weight_hh_l{i}` stack the gates' kernels transposed,
+in the order i, f, g, o; `bias_hh_l{i}` the `h*` biases; `bias_ih_l{i}`
+is zero.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 from torch import nn
 
 _INDEXED = re.compile(r"(stack|layer)(\d+)$")
+_LSTM = re.compile(r"rnns_(\d+)$")
+_GATES = "ifgo"
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -63,21 +72,59 @@ def _torch_key(path: Tuple[str, ...], leaf: np.ndarray
     return ".".join(parts + [last]), leaf
 
 
+def _lstm_entries(lstm: Dict[Tuple[str, str], Dict[str, np.ndarray]]
+                  ) -> Iterator[Tuple[str, np.ndarray]]:
+    """Each flax LSTM cell's twelve leaves (keyed `ii/kernel`, `hi/bias`,
+    ...) → its four nn.LSTM entries."""
+    for (prefix, i), leaves in lstm.items():
+        want = {f"{s}{g}/kernel" for s in "ih" for g in _GATES} | \
+            {f"h{g}/bias" for g in _GATES}
+        if set(leaves) != want:
+            raise KeyError(f"{prefix}rnns_{i}/cell: unknown "
+                           f"{sorted(set(leaves) - want)}, missing "
+                           f"{sorted(want - set(leaves))}")
+        hb = np.concatenate([leaves[f"h{g}/bias"] for g in _GATES])
+        for s, name in (("i", "ih"), ("h", "hh")):
+            yield f"{prefix}rnns.weight_{name}_l{i}", np.concatenate(
+                [leaves[f"{s}{g}/kernel"].T for g in _GATES])
+        yield f"{prefix}rnns.bias_hh_l{i}", hb
+        yield f"{prefix}rnns.bias_ih_l{i}", np.zeros_like(hb)
+
+
+def _entries(params: Dict[str, Any]) -> Iterator[Tuple[str, str,
+                                                       np.ndarray]]:
+    """(flax path, torch key, value) of every leaf of `params`."""
+    lstm: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
+    for path, leaf in _flatten(params):
+        cell = [j for j, name in enumerate(path) if _LSTM.match(name)]
+        if cell:
+            j = cell[0]
+            prefix = "".join(p + "." for p in path[:j])
+            if path[j + 1:j + 2] != ("cell",):
+                raise KeyError(f"flax parameter {'/'.join(path)} has no "
+                               f"counterpart in the port")
+            lstm.setdefault((prefix, _LSTM.match(path[j]).group(1)), {})[
+                "/".join(path[j + 2:])] = leaf
+            continue
+        yield ("/".join(path), *_torch_key(path, leaf))
+    for key, value in _lstm_entries(lstm):
+        yield key, key, value
+
+
 def flax_to_state_dict(params: Dict[str, Any],
                        model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert `params` for `model` (an RnntModel or any module whose
-    names follow the flax tree). The result loads with
+    """Convert `params` for `model` (an RnntModel, an RnnLm or any module
+    whose names follow the flax tree). The result loads with
     `model.load_state_dict(..., strict=True)`."""
     expected = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params):
-        key, value = _torch_key(path, leaf)
+    for name, key, value in _entries(params):
         if key not in expected:
-            raise KeyError(f"flax parameter {'/'.join(path)} has no "
-                           f"counterpart {key!r} in the port")
+            raise KeyError(f"flax parameter {name} has no counterpart "
+                           f"{key!r} in the port")
         if tuple(expected[key].shape) != value.shape:
-            raise ValueError(f"{'/'.join(path)}: shape {value.shape} does "
-                             f"not fit {key} {tuple(expected[key].shape)}")
+            raise ValueError(f"{name}: shape {value.shape} does not fit "
+                             f"{key} {tuple(expected[key].shape)}")
         out[key] = torch.tensor(value, dtype=torch.float32)
     missing = sorted(set(expected) - set(out))
     if missing:

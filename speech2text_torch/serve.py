@@ -1,82 +1,62 @@
-"""Greedy transducer serving: PCM in, token ids out.
+"""Transducer serving: PCM in, token ids out.
 
 `RnntServer` is built from an inference config such as
-configs/inference/pruned_rnnt_greedy_search.yaml and the training config
-it names (`task.train_config`), the way inference.py reads them:
-the test set's feature settings and the decoding section override the
-training config. `transcribe` runs featurize (int16 → f32, fbank, CMVN;
-no augmentation) → Zipformer2 encoder → batched greedy decoding.
+configs/inference/zipformer_stateless_pruned_rnnt_beam_search.yaml and
+the training config it names (`task.train_config`), applied to each other
+by inference.py:inference_train_config, as the inference entry does.
+`transcribe` runs featurize (int16 → f32, fbank, CMVN; no augmentation) →
+Zipformer2 encoder (chunk-masked when `streaming.is_encoder_streaming`
+asks for simulated streaming) → the decoder of the `decoding` section
+(greedy, or beam search with an optional RNN-LM from
+`metric.lm_fusion`; decoding.py:build_decoding).
 
 Runs on `cuda` unless the caller passes `device="cpu"`. Weights are a
-seeded random init (`seed`) or a converted flax tree
-(`server.model.load_state_dict(convert.flax_to_state_dict(...))`).
-Restoring the JAX package's orbax checkpoints, token-id → text and the
-manifest CLI are not ported yet.
+seeded random init (`seed`), a port checkpoint (`checkpoint=`: a
+`step_*.pt` file, or a checkpoint directory from which the config's
+`task` section selects, train/checkpoint.py:inference_weights), or a
+converted flax tree (`server.model.load_state_dict(
+convert.flax_to_state_dict(...))`). Token ids become text through a
+tokenizer (decoding.ids_to_texts); a test set with a WER report goes
+through `python -m speech2text_torch.inference`. Restoring the JAX
+package's orbax checkpoints is not ported.
 """
 
 from __future__ import annotations
 
-import copy
 import os
-from pathlib import Path
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import load_config
 from .data.frontend import Fbank, FrontendSetup, dequant_pcm
-from .decoding import RnntGreedyDecoding
+from .inference import _resolve, inference_train_config
 from .models.cmvn import GlobalCmvn
-from .tasks.rnnt import RnntModel
-
-REPO_ROOT = Path(__file__).resolve().parents[1]
-
-
-def _resolve(path: str) -> str:
-    """A config path as given, else relative to the repo root."""
-    if os.path.isabs(path) or os.path.exists(path):
-        return path
-    return str(REPO_ROOT / path)
+from .tasks.rnnt import (RnntModel, decoding_of, load_fusion_lm,
+                         streaming_chunks)
+from .train.checkpoint import inference_weights
 
 
-def serving_train_config(infer_cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The training config an inference config serves
-    (`task.train_config`, a path or a loaded config dict), with the test
-    set's feature settings and the decoding section applied, as
-    inference.py applies them."""
-    train_cfg = infer_cfg["task"]["train_config"]
-    train_cfg = copy.deepcopy(train_cfg) if isinstance(train_cfg, dict) \
-        else load_config(_resolve(train_cfg))
-    ts_cfg = (infer_cfg.get("testset") or {}).get("config") or {}
-    ds = train_cfg.setdefault("dataset", {})
-    if "feat_type" in ts_cfg and not ts_cfg["feat_type"].startswith(
-            "torchscript") and ds.get("feat_type") != "pcm":
-        ds["feat_type"] = ts_cfg["feat_type"]
-    if "num_mel_bins" in (ts_cfg.get("feat_config") or {}):
-        ds.setdefault("feat_config", {})["num_mel_bins"] = \
-            ts_cfg["feat_config"]["num_mel_bins"]
-    dec = infer_cfg.get("decoding") or {}
-    if dec.get("type"):
-        metric = train_cfg.setdefault("metric", {})
-        metric["decode_method"] = dec["type"]
-        metric.update(dec.get("config") or {})
-    return train_cfg
+# the training config an inference config serves: the inference entry's
+serving_train_config = inference_train_config
 
 
 class RnntServer:
 
     def __init__(self, inference_config: Union[str, Dict[str, Any]],
-                 device: Union[str, torch.device] = "cuda", seed: int = 0):
-        """`inference_config` is a path or a loaded config dict."""
-        infer_cfg = load_config(inference_config) \
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 checkpoint: Optional[str] = None):
+        """`inference_config` is a path or a loaded config dict;
+        `checkpoint` a port checkpoint file or directory (else the
+        weights are seeded)."""
+        infer_cfg = load_config(_resolve(inference_config)) \
             if isinstance(inference_config, str) else inference_config
         train_cfg = serving_train_config(infer_cfg)
         metric = train_cfg.get("metric") or {}
-        method = metric.get("decode_method", "rnnt_greedy_search")
-        if method != "rnnt_greedy_search":
-            raise NotImplementedError(f"decode method {method!r} is not "
-                                      f"ported (rnnt_greedy_search only)")
+        if metric.get("int8"):
+            raise NotImplementedError("metric.int8 (int8 decoding) is not "
+                                      "ported")
         self.device = torch.device(device)
         self.batch_size = int(((infer_cfg.get("testset") or {}).get(
             "config") or {}).get("batch_size", 16))
@@ -94,13 +74,22 @@ class RnntServer:
             else GlobalCmvn()
 
         self.model = RnntModel.from_config(train_cfg)
-        self.model.init_weights(torch.Generator().manual_seed(seed))
-        for m in (self.frontend, self.cmvn, self.model):
-            m.to(self.device).eval()
-        self.decoder = RnntGreedyDecoding(
-            self.model.predictor_step, self.model.predictor.init_state,
-            self.model.joiner_step,
-            max_token_step=int(metric.get("max_token_step", 1)))
+        if checkpoint is None:
+            self.model.init_weights(torch.Generator().manual_seed(seed))
+        elif os.path.isdir(checkpoint):
+            self.model.load_state_dict(inference_weights(
+                dict(infer_cfg["task"], checkpoints_dir=checkpoint),
+                train_cfg))
+        else:
+            self.model.load_state_dict(torch.load(
+                checkpoint, map_location="cpu", weights_only=True)["model"])
+        vocab = self.model.joiner.config.output_dim
+        self.lm, lm_weight = load_fusion_lm(metric, vocab, vocab)
+        self.streaming = streaming_chunks(metric)
+        for m in (self.frontend, self.cmvn, self.model, self.lm):
+            if m is not None:
+                m.to(self.device).eval()
+        self.decoder = decoding_of(metric, self.model, self.lm, lm_weight)
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -117,7 +106,7 @@ class RnntServer:
 
     @torch.inference_mode()
     def encode(self, feats: torch.Tensor, feat_lens: torch.Tensor):
-        return self.model.encode(feats, feat_lens)
+        return self.model.encoder(feats, feat_lens, *self.streaming)
 
     @torch.inference_mode()
     def transcribe(self, pcm, pcm_lengths):

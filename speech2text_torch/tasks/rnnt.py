@@ -1,13 +1,15 @@
 """Transducer model assembly and the pruned RNN-T task (port of
 speech2text_tpu/tasks/rnnt.py): `RnntModel` (encoder + predictor +
-joiner) with its training forward and the three calls greedy decoding
-needs, the random chunk choice of chunked-causal training
+joiner) with its training forward and the predictor and joiner steps
+decoding needs, the random chunk choice of chunked-causal training
 (`sample_chunk`), the pruned RNN-T task loss (`PrunedRnntLossFn`) and
 `PrunedRnntTask`: the loss of its YAML (`loss`, taken in training by
-train/step.py:take_step), the evaluation forward with validation losses,
-and greedy hypotheses as text. The int8,
-beam-search and simulated-streaming evaluation branches raise
-NotImplementedError."""
+train/step.py:take_step), the evaluation forward with validation losses
+(or, with `metric.encoder_streaming`, the chunk-masked encoder alone:
+simulated streaming), and hypotheses as text from the decoder the
+`metric` section names (decoding.py:build_decoding: greedy, or beam
+search with an optional RNN-LM from `metric.lm_fusion`,
+`load_fusion_lm`). `metric.int8` raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..config import from_dict
-from ..decoding import RnntGreedyDecoding, ids_to_texts
+from ..decoding import build_decoding, ids_to_texts
 from ..losses import Loss
 from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
 from ..models.predictor import StatelessPredictor, StatelessPredictorConfig
+from ..models.rnn_lm import RnnLm, RnnLmConfig
 from ..models.zipformer import Zipformer2, Zipformer2Config
+from ..train.checkpoint import average_checkpoints
 from .base import AsrTaskBase, Batch
 
 
@@ -88,9 +92,6 @@ class RnntModel(nn.Module):
         return {"enc": enc, "enc_lens": enc_lens, "logits": logits,
                 "ranges": ranges, "simple_loss": simple_loss}
 
-    def encode(self, feats: torch.Tensor, feat_lens: torch.Tensor):
-        return self.encoder(feats, feat_lens)
-
     def predictor_step(self, token: torch.Tensor, state: torch.Tensor):
         return self.predictor.streaming_step(token, state)
 
@@ -142,9 +143,58 @@ class PrunedRnntLossFn:
                 "simple_loss": simple, "pruned_loss": pruned}
 
 
+def load_fusion_lm(metric: Dict[str, Any], num_symbols: int,
+                   vocab: int) -> Tuple[Optional[RnnLm], float]:
+    """The shallow-fusion LM of `metric.lm_fusion` (tasks/rnnt.py:
+    BaseRnntTask): an `RnnLm` of `lm_config` (`num_symbols` defaults to
+    `num_symbols`) with the average of the best `best_k` (default 1)
+    checkpoints of `checkpoint_dir` by `monitor` (default `acc`) and
+    `mode` (default `max`), and `lm_weight` (default 0.3); (None, 0.0)
+    without a `checkpoint_dir`. An LM of fewer symbols than the joiner's
+    `vocab` raises."""
+    fusion = metric.get("lm_fusion") or {}
+    if not fusion.get("checkpoint_dir"):
+        return None, 0.0
+    lm_cfg = dict(fusion.get("lm_config") or {})
+    lm_cfg.setdefault("num_symbols", num_symbols)
+    lm = RnnLm(from_dict(RnnLmConfig, lm_cfg))
+    if lm.config.num_symbols < vocab:
+        raise ValueError(f"the fusion LM's {lm.config.num_symbols} symbols "
+                         f"do not cover the joiner's {vocab}")
+    lm.load_state_dict(average_checkpoints(
+        fusion["checkpoint_dir"], best_k=int(fusion.get("best_k", 1)),
+        monitor=fusion.get("monitor", "acc"),
+        mode=fusion.get("mode", "max")))
+    return lm.eval(), float(fusion.get("lm_weight", 0.3))
+
+
+def decoding_of(metric: Dict[str, Any], model: RnntModel,
+                lm: Optional[RnnLm], lm_weight: float):
+    """`build_decoding` over `model`'s predictor and joiner steps and the
+    fusion LM's, if any."""
+    return build_decoding(
+        metric, model.predictor_step, model.predictor.init_state,
+        model.joiner_step,
+        lm_step=None if lm is None else lm.score_step,
+        lm_init_state=None if lm is None else lm.init_state,
+        lm_weight=lm_weight)
+
+
+def streaming_chunks(metric: Dict[str, Any]) -> Tuple[int, int]:
+    """(chunk_size, left_context_chunks) of the encoder's forward: the
+    simulated-streaming chunks of `metric.encoder_streaming`
+    (`streaming_chunk_size`, default 32; `streaming_left_chunks`, default
+    4), else full context (-1, -1)."""
+    if not metric.get("encoder_streaming"):
+        return -1, -1
+    return (int(metric.get("streaming_chunk_size", 32)),
+            int(metric.get("streaming_left_chunks", 4)))
+
+
 class PrunedRnntTask(AsrTaskBase):
     """The pruned RNN-T task (tasks/rnnt.py:PrunedRnntTask): tokenizer,
-    featurizer, model, loss and greedy decoding of one training YAML."""
+    featurizer, model, loss and decoding of one training YAML; the fusion
+    LM, if any, is the submodule `lm`."""
 
     def __init__(self, config: Dict[str, Any]):
         if config["joiner"].get("prune_range", -1) <= 0:
@@ -156,24 +206,28 @@ class PrunedRnntTask(AsrTaskBase):
             raise ValueError(f"the tokenizer has {len(self.tokenizer)} "
                              f"labels, the joiner only {out_dim} outputs")
         self.loss = PrunedRnntLossFn(config["loss"])
-        metric_cfg = config.get("metric") or {}
-        method = metric_cfg.get("decode_method", "rnnt_greedy_search")
-        if method != "rnnt_greedy_search":
-            raise NotImplementedError(f"decode method {method!r} is not "
-                                      f"ported (rnnt_greedy_search only)")
-        for key in ("int8", "encoder_streaming", "lm_fusion"):
-            if metric_cfg.get(key):
-                raise NotImplementedError(f"metric.{key} is not ported")
-        self.decode_session = RnntGreedyDecoding(
-            self.model.predictor_step, self.model.predictor.init_state,
-            self.model.joiner_step,
-            max_token_step=int(metric_cfg.get("max_token_step", 1)))
+        metric = config.get("metric") or {}
+        if metric.get("int8"):
+            raise NotImplementedError("metric.int8 (int8 decoding) is not "
+                                      "ported")
+        self.streaming = streaming_chunks(metric)
+        self.lm, lm_weight = load_fusion_lm(metric, len(self.tokenizer),
+                                            out_dim)
+        self.decode_session = decoding_of(metric, self.model, self.lm,
+                                          lm_weight)
 
     @torch.no_grad()
-    def eval_forward(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """The full forward without augmentation, dropout or chunking:
-        the encoder output for decoding and the validation losses."""
+    def eval_forward(self, batch: Batch, losses: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+        """The forward without augmentation or dropout: the encoder output
+        for decoding and, unless `losses` is False, the validation losses
+        of the full forward. With `metric.encoder_streaming` the encoder
+        runs chunk-masked and alone (no losses), as in JAX."""
         feats, feat_lens = self.featurize(batch, training=False)
+        if self.streaming != (-1, -1) or not losses:
+            enc, enc_lens = self.model.encoder(feats, feat_lens,
+                                               *self.streaming)
+            return {"enc": enc, "enc_lens": enc_lens}
         out = self.model(feats, feat_lens, batch["label"],
                          batch["label_length"])
         return {"enc": out["enc"], "enc_lens": out["enc_lens"],

@@ -9,6 +9,8 @@ and step restore them. `index.json` has the JAX package's schema,
 {"checkpoints": {step: {metric: value}}}, and pruning keeps the same
 steps: the `save_top_k` best by `monitor` (ties to the later step) and
 always the latest. Files are loaded with `weights_only=True`.
+`inference_weights` selects the weights an inference config asks for
+(averaged, named or latest), as inference.py does.
 """
 
 from __future__ import annotations
@@ -132,3 +134,27 @@ def average_checkpoints(directory: str, best_k: int = 5,
                 acc[k] = acc[k] + v.double()
     return {k: (acc[k] / len(steps)).to(first[k].dtype)
             if first[k].is_floating_point() else acc[k] for k in acc}
+
+
+def inference_weights(task_section: Dict[str, Any],
+                      train_config: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The model weights an inference config's `task` section selects
+    (inference.py): the average of the best `aver_best_k` (default 5) by
+    `wer` with `chkpt_aver`, else step `chkpt_name`, else the latest;
+    ranked by `max` when `descending`, else `min`. The directory is
+    `checkpoints_dir`, by default `<export_path>/<name>/checkpoints` of
+    the training config's `task`."""
+    train_task = train_config["task"]
+    directory = task_section.get("checkpoints_dir") or os.path.join(
+        train_task["export_path"], train_task["name"], "checkpoints")
+    mode = "max" if task_section.get("descending") else "min"
+    if task_section.get("chkpt_aver"):
+        return average_checkpoints(
+            directory, best_k=int(task_section.get("aver_best_k", 5)),
+            mode=mode)
+    mgr = CheckpointManager(directory, mode=mode)
+    step = task_section.get("chkpt_name") or mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
+    log.info("checkpoint step %s of %s", step, directory)
+    return mgr.restore(int(step))["model"]

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither jax nor speech2text_tpu, its
 kernel wrappers never compute a CUDA tensor on the CPU, and its training
-entry points run on the card unless the caller asks for the CPU: with no
-card and no such request they raise."""
+and inference entry points run on the card unless the caller asks for the
+CPU: with no card and no such request they raise."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ from speech2text_torch.data.frontend import Fbank
 from speech2text_torch.ops import attn_weights, build, fbank
 
 PKG = Path(__file__).resolve().parents[1] / "speech2text_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "speech2text_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+             "speech2text_tpu")
 
 
 def test_import_pulls_in_no_jax():
@@ -27,7 +28,8 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.optim, speech2text_torch.losses, "
         "speech2text_torch.build_task, speech2text_torch.train.loop, "
         "speech2text_torch.data.dataset, speech2text_torch.tasks.base, "
-        "speech2text_torch.tools.synth_corpus\n"
+        "speech2text_torch.tools.synth_corpus, speech2text_torch.inference, "
+        "speech2text_torch.decoding, speech2text_torch.models.rnn_lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
@@ -106,4 +108,17 @@ def test_build_task_raises_without_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_task.prepare([f"--training_config={cfg}",
                             f"--override=task.export_path={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_inference_raises_without_card(monkeypatch, tmp_path):
+    from speech2text_torch import inference
+    _no_card(monkeypatch)
+    cfg = PKG.parent / "configs" / "inference" / \
+        "zipformer_stateless_pruned_rnnt_beam_search.yaml"
+    for extra in ([], ["--override=task.platform=cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            inference.prepare([f"--inference_config={cfg}",
+                               f"--override=task.export_path={tmp_path}/o"]
+                              + extra)
     assert not any(tmp_path.iterdir())

@@ -216,11 +216,18 @@ def test_flagship_serving_config():
     server_cfg = load_config(
         str(ROOT / "configs/inference/pruned_rnnt_greedy_search.yaml"))
     train = serving_train_config(server_cfg)
-    assert train == {**yaml.safe_load((
+    want = {**yaml.safe_load((
         ROOT / "configs/training/zipformer_stateless_pruned_rnnt.yaml"
     ).read_text()),
         "metric": {"decode_method": "rnnt_greedy_search",
                    "max_token_step": 1}}
+    # inference.py's rewrites: the subword model trained into the run's
+    # spm/ directory, the test set's manifest
+    spm = "tasks/zipformer-stateless-pruned-rnnt/spm/tokenizer"
+    want["tokenizer"]["config"] = {"spm_model": spm + ".model",
+                                   "spm_vocab": spm + ".vocab"}
+    want["dataset"]["test_data"] = server_cfg["testset"]["test_data"]
+    assert train == want
     assert train["encoder"]["config"]["dtype"] == "bfloat16"
     assert train["joiner"]["use_out_project"] is False
     assert server_cfg["testset"]["config"]["batch_size"] == 16

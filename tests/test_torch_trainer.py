@@ -312,8 +312,9 @@ def test_unported_options_raise(corpus, tmp_path):
         cfg = _config(corpus, workdir, **{key: value})
         with pytest.raises(NotImplementedError):
             Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
-    for key, value in (("decode_method", "rnnt_beam_search"),
-                       ("int8", True), ("encoder_streaming", True)):
+    for key, value in (("decode_method", "ctc_greedy_search"),
+                       ("decode_method", "ctc_prefix_beam_search"),
+                       ("int8", True)):
         cfg = _config(corpus, workdir)
         cfg["metric"][key] = value
         with pytest.raises(NotImplementedError):
