@@ -66,6 +66,22 @@ Phases (any failed check raises and the script exits non-zero):
      gives the unfused tokens, with both weights); (f) streaming.
      is_encoder_streaming: every B1 launch of a test batch carries the
      chunk mask;
+ 12. (streaming) StreamingAsrSession on the flagship (phase 10's YAML and
+     subword model, seeded weights, 4 left chunks) over raw PCM cut from
+     phase 10's eval wavs: (a) f32, B=2, ~6 s at chunk 32: tokens equal
+     the offline chunk-masked decode on the card and the same session on
+     the CPU (the count compared is printed and > 0), each chunk's encoder
+     output within ENC_TOL of the offline encoder; (b) bf16 at chunks 16,
+     32 and 64: 1 B2 and 0 B1 launches per chunk (wrapper counts and the
+     trace), every B2 call held to the plain version (linear mel), the
+     encoder no more than BF16_STREAM_RMS_RATIO times as far from the f32
+     offline encoder as the bf16 offline encoder, token agreement
+     reported; (c) latency at chunk 32 over 31 chunks at B=1 and B=16
+     (the prime apart; steady p50/p95/max, RTF = p50 / 640 ms), one
+     profiled steady chunk (device busy share, device ops, host spans
+     featurize / encoder / greedy) and B2's device time at the chunk's
+     shape beside its bound; (d) speech2text_torch.tools.stream_demo's
+     main on an eval wav with phase 10's checkpoints, its launches counted;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -83,7 +99,9 @@ phase 7's times at its shapes), under "serve" the serving path's (phase
 10's launches (the whole run and one step) and the worst error against
 the plain version over its bucket shapes, and under "infer" phase 11's
 (the flagship beam YAML's run: launches, per test batch, and the worst
-error of the test batches checked).
+error of the test batches checked), and under "stream" phase 12's (the
+demo's launches, launches per chunk, the worst B2 error over phase 12's
+chunks, B2's times at the B=1 step shape, and at B=16).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -149,6 +167,13 @@ RUN_LAYERS = 12
 BEAM_CFG = "configs/inference/zipformer_stateless_pruned_rnnt_beam_search.yaml"
 LM_CFG = "configs/training/rnn_lm.yaml"
 LM_WEIGHT = 0.3
+# phase 12: true streaming; bf16 streaming must be no more than this many
+# times as far (RMS) from the f32 offline encoder as the bf16 offline
+# encoder is: both round to bf16, in other summation orders
+STREAM_LEFT, STREAM_SECS = 4, 6
+STREAM_CHUNKS = (16, 32, 64)
+STREAM_TIMED_CHUNKS = 30
+BF16_STREAM_RMS_RATIO = 2.0
 
 
 def card_line():
@@ -811,22 +836,23 @@ def phase_train_f32(card, report):
 
 
 SPANS = ("featurize", "encoder", "joiner_losses", "backward", "optimizer")
+STREAM_SPANS = ("featurize", "encoder", "greedy")
 
 
-def profile_summary(prof):
+def profile_summary(prof, span_names=SPANS):
     """A profiled step's device rows (key, ms, count; kernels and copies,
-    largest first), their busy ms, and the host ms of each span of SPANS.
-    The spans' GPU-side annotations cover kernels already counted and are
-    left out of the rows."""
+    largest first), their busy ms, and the host ms of each span of
+    `span_names`. The spans' GPU-side annotations cover kernels already
+    counted and are left out of the rows."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0
-            and e.key not in SPANS + ("data",)]
+            and e.key not in SPANS + STREAM_SPANS + ("data",)]
     rows.sort(key=lambda r: -r[1])
     spans = {}
     for e in prof.events():
-        if e.name in SPANS and e.device_type != cuda:
+        if e.name in span_names and e.device_type != cuda:
             spans[e.name] = spans.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     return rows, sum(r[1] for r in rows), spans
@@ -1582,6 +1608,287 @@ def phase_infer(card, report, tmp, trained):
     return launches, per_batch, worst
 
 
+# ------------------------------------------------------------ phase 12
+def stream_audio(corpus, B, n):
+    """B streams of n samples cut from the synthetic eval set's wavs, read
+    in order, joined and repeated as needed (f32 in [-1, 1))."""
+    from speech2text_torch.data.audio import read_wav
+    from speech2text_torch.data.manifest import load_manifest
+    pcm = np.concatenate([read_wav(e["audio_filepath"])[0] for e in
+                          load_manifest(corpus["eval_data"])])
+    pcm = np.tile(pcm, -(-B * n // len(pcm)))
+    return pcm[:B * n].reshape(B, n).astype(np.float32)
+
+
+def stream_samples(sess, secs):
+    """The longest prime + k·step samples within `secs` seconds."""
+    k = (int(secs * SR) - sess.prime_samples) // sess.step_samples
+    return sess.prime_samples + k * sess.step_samples
+
+
+def stream_chunks(sess, pcm):
+    """The session over (B, N) PCM of prime + k·step samples → (final
+    state, each chunk's encoder output)."""
+    state = sess.prime(pcm[:, :sess.prime_samples], sess.init_state(
+        pcm.shape[0]))
+    outs = [state["enc_out"]]
+    for off in range(sess.prime_samples, pcm.shape[1], sess.step_samples):
+        state = sess.step(pcm[:, off:off + sess.step_samples], state)
+        outs.append(state["enc_out"])
+    return state, outs
+
+
+def offline_decode(task, pcm, chunk):
+    """The offline chunk-masked decode of the whole PCM (B2 featurize, the
+    chunk-masked encoder, greedy): (enc, enc_lens, tokens, counts)."""
+    B, n = pcm.shape
+    task.streaming = (chunk, STREAM_LEFT)
+    dev = next(task.parameters()).device
+    batch = {"pcm": torch.from_numpy(pcm).to(dev),
+             "pcm_length": torch.full((B,), n, dtype=torch.int32,
+                                      device=dev)}
+    out = task.eval_forward(batch, losses=False)
+    tokens, counts = task.decode_session.decode(out["enc"], out["enc_lens"])
+    return out["enc"], out["enc_lens"], tokens, counts
+
+
+def stream_tasks(trained):
+    """The flagship task (phase 10's YAML and subword model) in bf16 and in
+    f32, with the same seeded weights, on the card."""
+    from speech2text_torch.inference import inference_train_config
+    from speech2text_torch.tasks.rnnt import PrunedRnntTask
+    path = os.path.join(trained["workdir"], os.path.basename(TRAIN_CFG))
+    cfg = inference_train_config({"task": {"train_config": path}})
+    cfg["metric"] = {"decode_method": "rnnt_greedy_search",
+                     "max_token_step": 1, "encoder_streaming": True,
+                     "streaming_chunk_size": 32,
+                     "streaming_left_chunks": STREAM_LEFT}
+    task16 = PrunedRnntTask(cfg)
+    task16.model.init_weights(torch.Generator().manual_seed(SEED + 14))
+    cfg32 = json.loads(json.dumps(cfg))
+    cfg32["encoder"]["config"]["dtype"] = "float32"
+    task32 = PrunedRnntTask(cfg32)
+    task32.model.load_state_dict(task16.model.state_dict())
+    assert task16.model.encoder.config.dtype == "bfloat16"
+    return task16.to("cuda").eval(), task32.to("cuda").eval(), path
+
+
+def rms(x):
+    return float(torch.sqrt(torch.mean(torch.square(x.float()))))
+
+
+def phase_stream(card, report, trained):
+    """Phase 12: true streaming of the flagship (StreamingAsrSession) on
+    the card: (a) f32 parity, (b) bf16 at chunks 16/32/64 with every B2
+    call held to the plain version, (c) latency at B=1 and B=16, (d) the
+    stream demo entry."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.streaming import StreamingAsrSession
+    from speech2text_torch.tools import stream_demo
+    from speech2text_torch.tools.timing import kernel_durations_ms
+    out = {}
+    task16, task32, train_cfg = stream_tasks(trained)
+    corpus = trained["corpus"]
+
+    # (a) f32 on the card: tokens equal the offline chunk-masked decode and
+    # the same session on the CPU; each chunk's encoder output within
+    # ENC_TOL of the offline encoder's frames
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sess = StreamingAsrSession(task32, chunk_size=32,
+                               left_context_chunks=STREAM_LEFT,
+                               device="cuda")
+    pcm = stream_audio(corpus, 2, stream_samples(sess, STREAM_SECS))
+    t0 = time.perf_counter()
+    state, outs = stream_chunks(sess, pcm)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    enc, enc_lens, tokens, counts = offline_decode(task32, pcm, 32)
+    f = 32 // task32.model.encoder.config.output_downsampling_factor
+    assert int(enc_lens.min()) == f * len(outs) == enc.shape[1], \
+        (enc_lens, len(outs))
+    enc_err = max(check_close(f"f32 stream chunk {i} encoder", o,
+                              enc[:, i * f:(i + 1) * f], **ENC_TOL)
+                  for i, o in enumerate(outs))
+    n_tok = int(counts.sum())
+    assert n_tok > 0, "the seeded model emitted no token"
+    assert torch.equal(state["counts"], counts.long()) and \
+        torch.equal(state["tokens"], tokens.long()), \
+        "f32 streaming tokens differ from the offline chunk-masked decode"
+    cpu_task = copy.deepcopy(task32).to("cpu")
+    cpu_sess = StreamingAsrSession(cpu_task, chunk_size=32,
+                                   left_context_chunks=STREAM_LEFT,
+                                   device="cpu")
+    t0 = time.perf_counter()
+    cpu_state, _ = stream_chunks(cpu_sess, pcm)
+    cpu_s = time.perf_counter() - t0
+    assert torch.equal(cpu_state["counts"], state["counts"].cpu()) and \
+        torch.equal(cpu_state["tokens"], state["tokens"].cpu()), \
+        "f32 streaming tokens differ between the card and the CPU"
+    log(f"stream f32 B=2 {pcm.shape[1] / SR:.3f} s, chunk 32, "
+        f"{STREAM_LEFT} left chunks, {len(outs)} chunks: {n_tok} tokens "
+        f"identical to the offline chunk-masked decode and to the CPU "
+        f"session; encoder per chunk max abs err {enc_err:.3g} (tol "
+        f"{ENC_TOL}); {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU",
+        card)
+    out["f32"] = {"chunks": len(outs), "tokens": n_tok,
+                  "enc_max_abs_err": enc_err, "card_s": card_s,
+                  "cpu_s": cpu_s}
+    del cpu_sess, cpu_task
+
+    # (b) bf16 at the chunks the flagship trains on: 1 B2 and 0 B1 launch
+    # per chunk (wrapper counts and the trace), every B2 call against the
+    # plain version, the encoder against the offline one, the tokens
+    bf16 = {}
+    worst_mel = worst_log = 0.0
+    for chunk in STREAM_CHUNKS:
+        sess = StreamingAsrSession(task16, chunk_size=chunk,
+                                   left_context_chunks=STREAM_LEFT,
+                                   device="cuda")
+        pcm = stream_audio(corpus, 2, stream_samples(sess, STREAM_SECS))
+        stream_chunks(sess, pcm[:, :sess.prime_samples + sess.step_samples])
+        torch.cuda.synchronize()
+        calls = KernelCalls()
+        try:
+            aw.KERNEL.launches = fb.KERNEL.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, outs = stream_chunks(sess, pcm)
+                torch.cuda.synchronize()
+            launches = (aw.KERNEL.launches, fb.KERNEL.launches)
+            n = len(outs)
+            assert launches == (0, n), \
+                f"chunk {chunk}: (B1, B2) launches {launches} for {n} chunks"
+            assert len(calls["fbank"]) == n and not calls["attn_weights"]
+            traced = (len(kernel_durations_ms(prof, aw.KERNEL.name)),
+                      len(kernel_durations_ms(prof, fb.KERNEL.name)))
+            assert traced[0] == 0 and n - n // 10 <= traced[1] <= n, \
+                f"chunk {chunk}: the trace holds (B1, B2) {traced}"
+            frames = set()
+            for i, (a, got) in enumerate(calls["fbank"]):
+                want = fb.fbank_plain(*a)
+                worst_mel = max(worst_mel, check_mel(
+                    f"stream chunk {chunk} B2 call {i}", got, want))
+                worst_log = max(worst_log, float((got - want).abs().max()))
+                frames.add(int(got.shape[1]))
+        finally:
+            calls.close()
+        s16 = torch.cat(outs, 1)
+        enc, enc_lens, tokens, counts = offline_decode(task16, pcm, chunk)
+        enc32, _, _, _ = offline_decode(task32, pcm, chunk)
+        assert s16.shape == enc.shape and bool(torch.isfinite(s16).all())
+        ratio = rms(s16 - enc32) / rms(enc - enc32)
+        assert ratio <= BF16_STREAM_RMS_RATIO, \
+            f"chunk {chunk}: bf16 streaming is {ratio:.3f}x as far from " \
+            f"the f32 encoder as the offline bf16 encoder"
+        rows_equal = int(((state["tokens"] == tokens.long()).all(1)
+                          & (state["counts"] == counts.long())).sum())
+        n_stream, n_off = int(state["counts"].sum()), int(counts.sum())
+        assert n_stream > 0 and n_off > 0, "no token emitted"
+        bf16[chunk] = {
+            "chunks": n, "pcm_samples": pcm.shape[1],
+            "fbank_frames": sorted(frames), "launches": list(launches),
+            "traced": list(traced),
+            "enc_max_abs_diff": float((s16 - enc).abs().max()),
+            "enc_rel_rms_diff": rms(s16 - enc) / rms(enc),
+            "rms_ratio_vs_f32": ratio, "rows_equal": rows_equal,
+            "tokens_stream": n_stream, "tokens_offline": n_off}
+        log(f"stream bf16 B=2 chunk {chunk}: {n} chunks, (B1, B2) launches "
+            f"{launches}, traced {traced}, B2 frames {sorted(frames)} held "
+            f"to the plain version; encoder vs offline bf16 max abs diff "
+            f"{bf16[chunk]['enc_max_abs_diff']:.3g}, rel RMS "
+            f"{bf16[chunk]['enc_rel_rms_diff']:.3g}, distance to f32 "
+            f"{ratio:.3f}x the offline bf16's (limit "
+            f"{BF16_STREAM_RMS_RATIO}); rows with equal tokens {rows_equal}"
+            f"/2, tokens {n_stream} streamed vs {n_off} offline", card)
+    out["bf16"] = bf16
+
+    # (c) latency at chunk 32: B=1 and B=16, the prime apart, then one
+    # profiled steady chunk; B2's device time per chunk beside its bound
+    sess = StreamingAsrSession(task16, chunk_size=32,
+                               left_context_chunks=STREAM_LEFT,
+                               device="cuda")
+    n = sess.prime_samples + STREAM_TIMED_CHUNKS * sess.step_samples
+    latency = {}
+    for B in (1, 16):
+        pcm = stream_audio(corpus, B, n)
+        sess.run_utterance(pcm[:, :sess.prime_samples
+                               + 2 * sess.step_samples])
+        texts, lat = sess.run_utterance(pcm, measure_latency=True)
+        summ = stream_demo.latency_summary(lat, sess.chunk_ms)
+        state, _ = stream_chunks(sess, pcm[:, :sess.prime_samples
+                                           + sess.step_samples])
+        step_pcm = torch.from_numpy(pcm[:, :sess.step_samples]).cuda()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.step(step_pcm, state)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, busy, spans = profile_summary(prof, STREAM_SPANS)
+        ops = sum(r[2] for r in rows)
+        x = torch.cat([state["pcm_tail"], step_pcm], 1)
+        timing = fbank_timing(task16.frontend, x, card, worst_log)
+        latency[B] = dict(summ, chunks=len(lat), latency_ms=lat,
+                          profiled_wall_ms=wall, device_busy_ms=busy,
+                          device_ops=ops, span_host_ms=spans,
+                          top_device_ops=rows[:12], fbank=timing)
+        log(f"stream latency bf16 chunk 32 B={B}, {len(lat)} chunks of "
+            f"{sess.chunk_ms:.0f} ms: first (prime) {summ['first_ms']:.2f} "
+            f"ms, steady p50 {summ['p50_ms']:.2f} / p95 "
+            f"{summ['p95_ms']:.2f} / max {summ['max_ms']:.2f} ms, RTF "
+            f"{summ['rtf']:.4f}; profiled chunk {wall:.2f} ms wall, device "
+            f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), {ops} device "
+            f"ops, host spans featurize {spans.get('featurize', 0):.2f} / "
+            f"encoder {spans.get('encoder', 0):.2f} / greedy "
+            f"{spans.get('greedy', 0):.2f} ms; B2 {timing['ms']:.4f} ms "
+            f"device per chunk, bound {timing['bound_ms']:.4f} ms", card)
+        for key, ms, cnt in rows[:6]:
+            log(f"  {ms:8.3f} ms  x{cnt:<5d} {key[:90]}", card)
+    out["latency"] = latency
+
+    # (d) the demo entry on a wav of the corpus with phase 10's checkpoints
+    from speech2text_torch.data.manifest import load_manifest
+    wav = max(load_manifest(corpus["eval_data"]),
+              key=lambda e: e["duration"])["audio_filepath"]
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    demo = stream_demo.main([
+        "--train_config", train_cfg, "--wav", wav,
+        "--checkpoints_dir", os.path.join(trained["workdir"],
+                                          "checkpoints")])
+    torch.cuda.synchronize()
+    (res,) = demo["results"]
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    n_chunks = len(res["latency_ms"])
+    assert launches == {"attn_weights": 0, "fbank": n_chunks}, \
+        f"stream demo launches {launches} for {n_chunks} chunks"
+    assert all(math.isfinite(v) for v in res["summary"].values())
+    log(f"stream demo on {os.path.basename(wav)} ({res['seconds']:.2f} s, "
+        f"{n_chunks} chunks, phase 10's checkpoints): launches {launches}, "
+        f"steady p50 {res['summary']['p50_ms']:.2f} ms, transcript "
+        f"{res['text']!r}", card)
+    out["demo"] = {"wav": wav, "launches": launches,
+                   "summary": res["summary"], "text": res["text"]}
+    out["fbank_worst"] = {"mel_energy_share": worst_mel, "log": worst_log}
+    report["stream"] = out
+    del task16, task32, sess, demo
+    torch.cuda.empty_cache()
+    return {"attn_weights": dict(launches=0, launches_per_chunk=0),
+            "fbank": dict(launches=launches["fbank"], launches_per_chunk=1,
+                          max_abs_err=worst_log,
+                          **{k: latency[1]["fbank"][k] for k in (
+                              "ms", "host_ms", "plain_ms", "bound_ms",
+                              "bound_by")},
+                          ms_b16=latency[16]["fbank"]["ms"],
+                          bound_ms_b16=latency[16]["fbank"]["bound_ms"])}
+
+
 # ------------------------------------------------------------ compare
 def load_earlier(pkg_dir):
     """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
@@ -1716,6 +2023,7 @@ def main(argv):
             card, report, tmp)
         infer_launches, infer_per_batch, infer_err = phase_infer(
             card, report, tmp, run)
+        stream = phase_stream(card, report, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -1738,7 +2046,8 @@ def main(argv):
                             max_abs_err=run_err["attn_weights"]),
              infer=dict(launches=infer_launches["attn_weights"],
                         launches_per_batch=infer_per_batch["attn_weights"],
-                        max_abs_err=infer_err["attn_weights"])),
+                        max_abs_err=infer_err["attn_weights"]),
+             stream=stream["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -1751,10 +2060,13 @@ def main(argv):
                             max_abs_err=run_err["fbank"]),
              infer=dict(launches=infer_launches["fbank"],
                         launches_per_batch=infer_per_batch["fbank"],
-                        max_abs_err=infer_err["fbank"])),
+                        max_abs_err=infer_err["fbank"]),
+             stream=stream["fbank"]),
     ]
     for k in kernels:
-        for path in ("train_run", "infer"):
+        paths = ("train_run", "infer") + (
+            ("stream",) if k["name"] == "fbank" else ())
+        for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"
         for path in (k, k["serve"]):

@@ -30,6 +30,9 @@ import torch
 from .data.tokenizer import Tokenizer
 
 NEG_INF = -1e30
+# greedy decoding's state between frames: (predictor state, predictor
+# output (B, 1, D), tokens (B, max_tokens), counts (B,))
+Carry = Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def ids_to_texts(tokens: np.ndarray, counts: np.ndarray,
@@ -91,28 +94,40 @@ class RnntGreedyDecoding:
         self._max_token_step = max(1, int(max_token_step))
         self._cap = max_tokens
 
-    @torch.no_grad()
-    def decode(self, enc_out: torch.Tensor, enc_lens: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """enc_out (B, T, D), enc_lens (B,) → (tokens (B, max_tokens)
-        int32, counts (B,) int32)."""
-        B, T, _ = enc_out.shape
-        dev = enc_out.device
-        cap = self._cap
-        state = self._pred_init(B, dev)
+    def init_carry(self, batch_size: int, device: torch.device) -> Carry:
+        """The carry before the first frame: the predictor primed with
+        blank (token 0), no tokens."""
+        state = self._pred_init(batch_size, device)
         pred_out, state = self._pred_step(
-            torch.zeros((B,), dtype=torch.int64, device=dev), state)
-        tokens = torch.zeros((B, cap), dtype=torch.int64, device=dev)
-        counts = torch.zeros((B,), dtype=torch.int64, device=dev)
-        slot = torch.arange(cap, device=dev)
-        enc_lens = enc_lens.to(dev)
+            torch.zeros((batch_size,), dtype=torch.int64, device=device),
+            state)
+        tokens = torch.zeros((batch_size, self._cap), dtype=torch.int64,
+                             device=device)
+        counts = torch.zeros((batch_size,), dtype=torch.int64,
+                             device=device)
+        return state, pred_out, tokens, counts
+
+    @torch.no_grad()
+    def continue_frames(self, enc_out: torch.Tensor, carry: Carry,
+                        enc_lens: Optional[torch.Tensor] = None) -> Carry:
+        """The frame loop over enc_out (B, T, D) from `carry` (predictor
+        state, predictor output, tokens (B, max_tokens), counts (B,)) →
+        the carry after the last frame. Frames at or past `enc_lens`
+        emit nothing; without `enc_lens` every frame is active (streaming,
+        resumed chunk by chunk)."""
+        state, pred_out, tokens, counts = carry
+        B, T, _ = enc_out.shape
+        cap = self._cap
+        slot = torch.arange(cap, device=enc_out.device)
         for t in range(T):
             enc_t = enc_out[:, t]
-            active0 = enc_lens > t
+            active0 = None if enc_lens is None else enc_lens > t
             for _ in range(self._max_token_step):
                 logp = self._join(enc_t, pred_out[:, 0])
                 tok = torch.argmax(logp, dim=-1)
-                emit = active0 & (tok != 0) & (counts < cap)
+                emit = (tok != 0) & (counts < cap)
+                if active0 is not None:
+                    emit = active0 & emit
                 write = emit[:, None] & (slot[None, :] == counts[:, None])
                 tokens = torch.where(write, tok[:, None], tokens)
                 counts = counts + emit.to(counts.dtype)
@@ -122,6 +137,16 @@ class RnntGreedyDecoding:
                 state = torch.where(
                     emit.reshape((B,) + (1,) * (state.ndim - 1)), new_state,
                     state)
+        return state, pred_out, tokens, counts
+
+    @torch.no_grad()
+    def decode(self, enc_out: torch.Tensor, enc_lens: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """enc_out (B, T, D), enc_lens (B,) → (tokens (B, max_tokens)
+        int32, counts (B,) int32)."""
+        carry = self.init_carry(enc_out.shape[0], enc_out.device)
+        _, _, tokens, counts = self.continue_frames(
+            enc_out, carry, enc_lens.to(enc_out.device))
         return tokens.to(torch.int32), counts.to(torch.int32)
 
 

@@ -6,9 +6,18 @@ Covers the serving forward and the training forward with
 In training (`training=True`) the feedforwards drop out after SwooshL and
 each stack's output channels at or above `encoder_unmasked_dim[i]` are
 zeroed for a random share of whole utterances, the masks drawn from the
-`torch.Generator` the caller passes. Streaming, the training dynamics
+`torch.Generator` the caller passes. The training dynamics
 (`dynamics=True`: balancers, whitening, skip schedules) and the
 `scan_layers` layout are not ported.
+
+True streaming of a causal config (`Zipformer2.init_streaming_state`,
+`streaming_prime`, `streaming_step`): the frontend carries 8 raw fbank
+frames and 6 ConvNeXt sub-frames, each layer six caches (attention keys,
+the nonlinear-attention values, both attention values, both convolution
+contexts). Its outputs equal the chunk-masked forward's from frame 0.
+The streaming attention weights of a chunk against its cache
+(`AttentionWeights.step`) are plain torch on every device, as they are
+jnp code in JAX: kernel B1 takes square (T, T) weights only.
 
 Layouts at the edges are the JAX ones: the frontend takes fbank
 (B, T, F) and keeps its conv activations channels-last (B, T, F, C);
@@ -27,13 +36,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attn_weights import zip_weights
+from ..ops.attn_weights import NEG, zip_weights
 from ..ops.masking import chunk_causal_mask, make_non_pad_mask
 from .layers import Conv, Dense, dtype_of
 
@@ -172,21 +181,44 @@ class ConvNeXtBlock(nn.Module):
         self.pw2 = Dense(channels * 3, channels, dtype=dtype,
                          init_scale=0.01 ** 2)
 
+    def _h(self, xw: torch.Tensor) -> torch.Tensor:
+        """xw (B, T + 6, F, C), time already padded or windowed; the
+        frequency axis is padded (3, 3) here."""
+        xp = F.pad(xw, (0, 0, 3, 3))
+        return self.pw2(swoosh_l(self.pw1(self.dw(xp))))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, F, C)
         pad_t = (self.CONTEXT, 0) if self.causal else (3, 3)
-        xp = F.pad(x, (0, 0, 3, 3, *pad_t))
-        return x + self.pw2(swoosh_l(self.pw1(self.dw(xp))))
+        return x + self._h(F.pad(x, (0, 0, 0, 0, *pad_t)))
+
+    def step(self, window: torch.Tensor) -> torch.Tensor:
+        """Causal streaming: window (B, CONTEXT + c, F, C), the cached
+        sub-frames followed by c new ones → the c new frames' outputs,
+        equal to the causal `forward` on the whole stream."""
+        return window[:, self.CONTEXT:] + self._h(window)
 
 
 class Conv2dSubsampling(nn.Module):
-    """fbank (B, T, F) → (B, (T−7)//2 − 1, out_dim)."""
+    """fbank (B, T, F) → (B, (T−7)//2 − 1, out_dim).
+
+    Streaming (causal only): the conv stack sees 9 raw frames at stride 2,
+    so `stream_prime` takes the first 2c + RAW_TAIL raw frames and
+    `stream_step` 2c raw frames per chunk, each giving c sub-frames; the
+    cache carries the last RAW_TAIL raw frames (f32) and CONTEXT ConvNeXt
+    input sub-frames (model dtype). The zero `sub` cache stands in for the
+    causal forward's left padding, so the output is exact from frame 0."""
+
+    RAW_TAIL = 8
+    MID_CHANNELS = 32
 
     def __init__(self, feature_dim: int, out_dim: int,
-                 mid_channels: int = 32, dtype: torch.dtype = torch.float32,
-                 causal: bool = False):
+                 mid_channels: int = MID_CHANNELS,
+                 dtype: torch.dtype = torch.float32, causal: bool = False):
         super().__init__()
         C = mid_channels
         self.dtype = dtype
+        self.causal = causal
+        self.feature_dim, self.mid_channels = feature_dim, C
         self.conv1 = Conv(1, C, (3, 3), dtype=dtype)
         self.conv2 = Conv(C, C, (3, 3), strides=(2, 2), dtype=dtype)
         self.conv3 = Conv(C, C, (3, 3), dtype=dtype)
@@ -199,18 +231,53 @@ class Conv2dSubsampling(nn.Module):
     def freq_dim(feature_dim: int) -> int:
         return ((feature_dim - 2 - 3) // 2 + 1) - 2
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _stack(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, F) → (B, (T − 9)//2 + 1, F2, C)."""
         h = x[..., None].to(self.dtype)
         h = swoosh_r(self.conv1(h))
         h = swoosh_r(self.conv2(h))
-        h = swoosh_r(self.conv3(h))
-        h = self.convnext(h)
+        return swoosh_r(self.conv3(h))
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         B, T2, F2, C = h.shape
-        h = self.out_norm(self.out(h.reshape(B, T2, F2 * C)))
+        return self.out_norm(self.out(h.reshape(B, T2, F2 * C)))
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self._head(self.convnext(self._stack(x)))
         out_len = torch.div(lengths.to(torch.int32) - 5, 2,
                             rounding_mode="floor") + 1 - 2
         return h, torch.clamp(out_len, min=0).to(torch.int32)
+
+    # ------------------------------------------------------------ streaming
+    def init_cache(self, batch_size: int,
+                   device: torch.device | str = "cpu") -> Dict[str, Any]:
+        if not self.causal:
+            raise ValueError("exact streaming requires the causal ConvNeXt")
+        F2 = self.freq_dim(self.feature_dim)
+        return {
+            "raw_tail": torch.zeros((batch_size, self.RAW_TAIL,
+                                     self.feature_dim), device=device),
+            "sub": torch.zeros((batch_size, ConvNeXtBlock.CONTEXT, F2,
+                                self.mid_channels), dtype=self.dtype,
+                               device=device),
+        }
+
+    def stream_prime(self, feats: torch.Tensor, cache: Dict[str, Any]
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """First chunk: (B, 2c + RAW_TAIL, F) raw frames → (B, c,
+        out_dim)."""
+        win = torch.cat([cache["sub"], self._stack(feats)], dim=1)
+        out = self._head(self.convnext.step(win))
+        return out, {"raw_tail": feats[:, -self.RAW_TAIL:],
+                     "sub": win[:, -ConvNeXtBlock.CONTEXT:]}
+
+    def stream_step(self, feats: torch.Tensor, cache: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Steady state: (B, 2c, F) raw frames after the cached tail →
+        (B, c, out_dim)."""
+        return self.stream_prime(
+            torch.cat([cache["raw_tail"], feats], dim=1), cache)
 
 
 # ------------------------------------------------------------- attention
@@ -294,6 +361,46 @@ class AttentionWeights(nn.Module):
         q, k, qp, p = self.project(x, pos_emb)
         return zip_weights(q, k, qp, p, attn_mask, w_dtype=self.dtype)
 
+    def step(self, x_chunk: torch.Tensor, pos_table: torch.Tensor,
+             cached_k: torch.Tensor, valid_cache: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Streaming: queries are the chunk (C), keys the cache (L) then
+        the chunk. cached_k (B, L, H·qd) projected keys, filled from the
+        right; `valid_cache` the host count of real cached frames;
+        pos_table the embeddings of offsets −(L+C−1)..L+C−1
+        (CompactRelPositionalEncoding.table(L + C − 1)). Returns (weights
+        (B, H, C, L+C) in the layer's dtype, the new key cache).
+
+        Plain torch on every device, as JAX's `step` is jnp code: kernel
+        B1 takes square (T, T) weights and a (2T−1)-row table only. Scores
+        in f32, clipped at ±100, unfilled cache slots masked with −1e30,
+        f32 softmax, then the cast."""
+        B, C, _ = x_chunk.shape
+        H, qd, pd = self.num_heads, self.query_head_dim, self.pos_head_dim
+        L = cached_k.shape[1]
+        q = self.q_proj(x_chunk).reshape(B, C, H, qd)
+        keys = torch.cat([cached_k, self.k_proj(x_chunk)], dim=1)
+        k = keys.reshape(B, L + C, H, qd)
+        qp = self.qpos_proj(x_chunk).reshape(B, C, H, pd)
+        p = self.pos_proj(pos_table).reshape(-1, H, pd)
+        q, k, qp, p = (t.float() for t in (q, k, qp, p))
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(qd)
+        # query i sits at L + i, key s at s: offset L + i − s, table row
+        # offset + max_offset
+        rows = p.shape[0]
+        i = torch.arange(C, device=q.device)[:, None]
+        s = torch.arange(L + C, device=q.device)[None, :]
+        idx = torch.clamp(L + i - s + (rows - 1) // 2, 0, rows - 1)
+        rel = torch.einsum("bthd,rhd->bhtr", qp, p)
+        scores = scores + torch.gather(
+            rel, 3, idx.expand(B, H, C, L + C)) / math.sqrt(pd)
+        scores = scores.clamp(-100.0, 100.0)
+        unfilled = L - min(int(valid_cache), L)
+        if unfilled:
+            scores[..., :unfilled] = NEG
+        weights = torch.softmax(scores, dim=-1).to(self.dtype)
+        return weights, keys[:, keys.shape[1] - L:]
+
 
 class SelfAttention(nn.Module):
     """Value path reusing the layer's attention weights."""
@@ -308,14 +415,26 @@ class SelfAttention(nn.Module):
         self.out_proj = Dense(num_heads * value_head_dim, embed_dim,
                               dtype=dtype, init_scale=0.05 ** 2)
 
+    def _attend(self, attn_weights: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        """weights (B, H, Tq, Tk), projected values v (B, Tk, H·vd)."""
+        B, H, Tq, Tk = attn_weights.shape
+        v = v.reshape(B, Tk, H, self.value_head_dim).transpose(1, 2)
+        out = torch.matmul(attn_weights.to(v.dtype), v)    # (B, H, Tq, vd)
+        out = out.transpose(1, 2).reshape(B, Tq, -1).to(self.dtype)
+        return self.out_proj(out)
+
     def forward(self, x: torch.Tensor,
                 attn_weights: torch.Tensor) -> torch.Tensor:
-        B, T, _ = x.shape
-        H, vd = self.num_heads, self.value_head_dim
-        v = self.v_proj(x).reshape(B, T, H, vd).transpose(1, 2)
-        out = torch.matmul(attn_weights.to(v.dtype), v)     # (B, H, T, vd)
-        out = out.transpose(1, 2).reshape(B, T, H * vd).to(self.dtype)
-        return self.out_proj(out)
+        return self._attend(attn_weights, self.v_proj(x))
+
+    def step(self, x_chunk: torch.Tensor, attn_weights: torch.Tensor,
+             cached_v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """weights (B, H, C, L+C), cached_v (B, L, H·vd) → (out, the last
+        L values)."""
+        v = torch.cat([cached_v, self.v_proj(x_chunk)], dim=1)
+        return self._attend(attn_weights, v), \
+            v[:, v.shape[1] - cached_v.shape[1]:]
 
 
 class NonlinAttention(nn.Module):
@@ -336,6 +455,16 @@ class NonlinAttention(nn.Module):
         v = a * torch.tanh(s)
         out = torch.matmul(attn_weights_1head.to(v.dtype), v)
         return self.out_proj(b * out.to(self.dtype))
+
+    def step(self, x_chunk: torch.Tensor, attn_weights_1head: torch.Tensor,
+             cached_v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """weights (B, C, L+C), cached_v (B, L, hidden) → (out, the last L
+        values)."""
+        s, a, b = self.in_proj(x_chunk).chunk(3, dim=-1)
+        v = torch.cat([cached_v, a * torch.tanh(s)], dim=1)
+        out = torch.matmul(attn_weights_1head.to(v.dtype), v)
+        return self.out_proj(b * out.to(self.dtype)), \
+            v[:, v.shape[1] - cached_v.shape[1]:]
 
 
 class FeedforwardModule(nn.Module):
@@ -373,6 +502,15 @@ class ConvolutionModule(nn.Module):
         h = F.pad(h, (0, 0, left, K - 1 - left))
         return self.out_proj(swoosh_r(self.dw(h)))
 
+    def step(self, x_chunk: torch.Tensor, cache: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Causal streaming: cache (B, K−1, dim) post-GLU left context →
+        (out, the new cache)."""
+        h = F.glu(self.in_proj(x_chunk), dim=-1)
+        full = torch.cat([cache, h], dim=1)
+        return self.out_proj(swoosh_r(self.dw(full))), \
+            full[:, full.shape[1] - (self.kernel_size - 1):]
+
 
 # ----------------------------------------------------------------- layer
 class Zipformer2EncoderLayer(nn.Module):
@@ -383,6 +521,13 @@ class Zipformer2EncoderLayer(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         D = embed_dim
+        self.dtype = dtype
+        self.cache_dims = {"key": num_heads * query_head_dim,
+                           "nonlin": D * 3 // 4,
+                           "val1": num_heads * value_head_dim,
+                           "val2": num_heads * value_head_dim,
+                           "conv1": D, "conv2": D}
+        self.kernel_size = kernel_size
         self.attn_weights = AttentionWeights(D, num_heads, query_head_dim,
                                              pos_head_dim, pos_dim, dtype)
         self.ff1 = FeedforwardModule(D, ff_dim * 3 // 4, dtype, dropout)
@@ -416,6 +561,44 @@ class Zipformer2EncoderLayer(nn.Module):
         x = self.norm(x)
         return self.bypass(src, x)
 
+    # ------------------------------------------------------------ streaming
+    def init_cache(self, batch_size: int, left: int,
+                   device: torch.device | str = "cpu"
+                   ) -> Dict[str, torch.Tensor]:
+        """The six caches: `left` frames of keys, nonlinear-attention and
+        both attention values, K−1 frames of both convolutions' context."""
+        return {name: torch.zeros(
+            (batch_size, self.kernel_size - 1 if name.startswith("conv")
+             else left, dim), dtype=self.dtype, device=device)
+            for name, dim in self.cache_dims.items()}
+
+    def streaming_step(self, x: torch.Tensor, pos_table: torch.Tensor,
+                       cache: Dict[str, torch.Tensor], valid_cache: int
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """x (B, C, D) chunk → (out, new caches), in `forward`'s order;
+        equal to `forward` under a chunk mask with this left context."""
+        attn_w, key = self.attn_weights.step(x, pos_table, cache["key"],
+                                             valid_cache)
+        src = x
+        x = x + self.ff1(x)
+        out, nonlin = self.nonlin_attn.step(x, attn_w[:, 0], cache["nonlin"])
+        x = x + out
+        out, val1 = self.self_attn1.step(x, attn_w, cache["val1"])
+        x = x + out
+        out, conv1 = self.conv1.step(x, cache["conv1"])
+        x = x + out
+        x = x + self.ff2(x)
+        x = self.bypass_mid(src, x)
+        out, val2 = self.self_attn2.step(x, attn_w, cache["val2"])
+        x = x + out
+        out, conv2 = self.conv2.step(x, cache["conv2"])
+        x = x + out
+        x = x + self.ff3(x)
+        x = self.norm(x)
+        return self.bypass(src, x), {
+            "key": key, "nonlin": nonlin, "val1": val1, "val2": val2,
+            "conv1": conv1, "conv2": conv2}
+
 
 class Zipformer2Stack(nn.Module):
     """One resolution stack: downsample → layers → upsample → bypass."""
@@ -448,7 +631,7 @@ class Zipformer2Stack(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 attn_mask_fn, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, T, D_in = x.shape
+        T = x.shape[1]
         ds = self.downsample_factor
         x_orig = x
         x = self.downsample(convert_num_channels(x, self.embed_dim))
@@ -464,11 +647,47 @@ class Zipformer2Stack(nn.Module):
         if self.full_dim_bypass:
             return self.stack_bypass(
                 convert_num_channels(x_orig, self.embed_dim), x)
-        d = min(D_in, self.embed_dim)
+        return self._common_bypass(x_orig, x)
+
+    def _common_bypass(self, x_orig: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+        d = min(x_orig.shape[-1], self.embed_dim)
         out = self.stack_bypass(x_orig[..., :d], x[..., :d])
         if self.embed_dim > d:
             out = torch.cat([out, x[..., d:].to(out.dtype)], dim=-1)
         return out
+
+    # ------------------------------------------------------------ streaming
+    def init_cache(self, batch_size: int, chunk: int, left_chunks: int,
+                   device: torch.device | str = "cpu"
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's caches for `chunk` base-rate frames per step and
+        `left_chunks` chunks of left context at this stack's rate."""
+        left = left_chunks * max(chunk // self.downsample_factor, 1)
+        return [layer.init_cache(batch_size, left, device)
+                for layer in self.layers]
+
+    def streaming_step(self, x: torch.Tensor,
+                       caches: List[Dict[str, torch.Tensor]],
+                       valid_cache: int
+                       ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        """x (B, chunk, D_in) at the base rate; `valid_cache` the host
+        count of cached frames at this stack's rate. `full_dim_bypass`
+        raises: JAX's streaming step ignores it (reference caveat 1)."""
+        if self.full_dim_bypass:
+            raise NotImplementedError(
+                "streaming with full_dim_bypass: JAX's streaming step "
+                "ignores it, so there is no reference to hold it to")
+        T = x.shape[1]
+        h = self.downsample(convert_num_channels(x, self.embed_dim))
+        C = h.shape[1]
+        L = caches[0]["key"].shape[1] if caches else 0
+        pos_table = self.penc.table(L + C - 1, h.device)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            h, nc = layer.streaming_step(h, pos_table, cache, valid_cache)
+            new_caches.append(nc)
+        return self._common_bypass(x, self.up(h, T)), new_caches
 
 
 # ------------------------------------------------------------------ model
@@ -619,3 +838,82 @@ class Zipformer2(nn.Module):
         out = torch.where(make_non_pad_mask(out_lens, out.shape[1])[..., None],
                           out, 0.0)
         return out.float(), out_lens.to(torch.int32)
+
+    # -------------------------------------------------------- true streaming
+    PRIME_EXTRA_RAW = Conv2dSubsampling.RAW_TAIL
+
+    def init_streaming_state(self, batch_size: int, chunk_size: int = 32,
+                             left_context_chunks: int = 4,
+                             device: torch.device | str = "cpu"
+                             ) -> Dict[str, Any]:
+        """Zero caches for a causal config: the frontend's, six per layer,
+        and the host count of processed chunks. `chunk_size` is in
+        post-frontend frames. The first chunk goes through
+        `streaming_prime` with 2·chunk_size + PRIME_EXTRA_RAW raw fbank
+        frames, every later one through `streaming_step` with
+        2·chunk_size; the outputs then equal the chunk-masked forward's
+        from frame 0."""
+        cfg = self.config
+        if not cfg.causal:
+            raise ValueError("true streaming requires a causal config")
+        if cfg.full_dim_bypass:
+            raise NotImplementedError(
+                "streaming with full_dim_bypass: JAX's streaming step "
+                "ignores it, so there is no reference to hold it to")
+        for f in (*cfg.downsampling_factor, cfg.output_downsampling_factor):
+            if chunk_size % f:
+                raise ValueError(f"chunk_size {chunk_size} is not divisible "
+                                 f"by the downsampling factor {f}")
+        if 2 * chunk_size < Conv2dSubsampling.RAW_TAIL:
+            raise ValueError(f"chunk_size {chunk_size} is below "
+                             f"{Conv2dSubsampling.RAW_TAIL // 2}: a step "
+                             f"must cover the frontend's raw tail")
+        dims = cfg.encoder_dim
+        if dims[-1] != max(dims):
+            raise ValueError("streaming requires the last stack to be the "
+                             "widest")
+        return {"embed": self.embed.init_cache(batch_size, device),
+                "stacks": [stack.init_cache(batch_size, chunk_size,
+                                            left_context_chunks, device)
+                           for stack in self.stacks],
+                "processed": 0, "chunk_size": int(chunk_size)}
+
+    def _stream_tail(self, x: torch.Tensor, embed_cache: Dict[str, Any],
+                     state: Dict[str, Any]
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The stacks and the output downsample on one chunk of sub-frames;
+        the last stack is the widest, so it alone gives every channel."""
+        chunk, processed = state["chunk_size"], state["processed"]
+        caches = []
+        for stack, cache in zip(self.stacks, state["stacks"]):
+            valid = processed * max(chunk // stack.downsample_factor, 1)
+            x, nc = stack.streaming_step(x, cache, valid)
+            caches.append(nc)
+        return self.out_downsample(x).float(), {
+            "embed": embed_cache, "stacks": caches,
+            "processed": processed + 1, "chunk_size": chunk}
+
+    @staticmethod
+    def _check_frames(feats: torch.Tensor, want: int, what: str) -> None:
+        if feats.shape[1] != want:
+            raise ValueError(f"{what} takes {want} raw frames, got "
+                             f"{feats.shape[1]}")
+
+    def streaming_prime(self, feats: torch.Tensor, state: Dict[str, Any]
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """First chunk: (B, 2·chunk + PRIME_EXTRA_RAW, F) raw fbank frames
+        → (B, chunk // output_downsampling_factor, full_dim) f32 and the
+        new state."""
+        chunk = state["chunk_size"]
+        self._check_frames(feats, 2 * chunk + self.PRIME_EXTRA_RAW,
+                           "streaming_prime")
+        x, embed_cache = self.embed.stream_prime(feats, state["embed"])
+        return self._stream_tail(x, embed_cache, state)
+
+    def streaming_step(self, feats: torch.Tensor, state: Dict[str, Any]
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Steady state: (B, 2·chunk, F) raw fbank frames → (B, chunk //
+        output_downsampling_factor, full_dim) f32 and the new state."""
+        self._check_frames(feats, 2 * state["chunk_size"], "streaming_step")
+        x, embed_cache = self.embed.stream_step(feats, state["embed"])
+        return self._stream_tail(x, embed_cache, state)
