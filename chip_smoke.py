@@ -82,6 +82,26 @@ Phases (any failed check raises and the script exits non-zero):
      featurize / encoder / greedy) and B2's device time at the chunk's
      shape beside its bound; (d) speech2text_torch.tools.stream_demo's
      main on an eval wav with phase 10's checkpoints, its launches counted;
+ 13. (the Conformer family) on phase 10's corpus, f32 as the YAMLs leave
+     it: (a) configs/training/conformer_ctc.yaml (144 x 4, AdamW + Warmup,
+     clipping at 5.0) through build_task's main, 20 steps with a metrics
+     line every 5 and an evaluation and checkpoint (top-k by wer) every
+     10, then a fresh Trainer that restores step 20 (weights and AdamW
+     state bitwise) and takes 2 more steps; (b) its greedy and prefix-beam
+     (beam 8) inference YAMLs on (a)'s checkpoints, the time of
+     featurize / encode / each decoder per test batch, and f32 tokens on
+     seeded weights equal on the card and the CPU from the same features;
+     (c) configs/training/conformer_pruned_rnnt.yaml at its width (256 x
+     12, Projector head, CTC branch) through TrainStep at bench.py's shape:
+     dropout on in training only, a warm-up and 5 timed steps with finite
+     losses (ctc_loss included) and every parameter changed, the step's
+     parts, one profiled step; (d) the same YAML through build_task for 5
+     steps and an evaluation, then the pruned_rnnt_ctc_greedy_search
+     inference YAML on its checkpoint, f32 tokens on seeded weights equal
+     on the card and the CPU; (e) 0 B1 launches throughout, 2 B2 per
+     build_task step, 1 per TrainStep step and per eval or test batch,
+     and every B2 call of the build_task and inference runs held to the
+     plain version with check_mel;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -101,11 +121,14 @@ the plain version over its bucket shapes, and under "infer" phase 11's
 (the flagship beam YAML's run: launches, per test batch, and the worst
 error of the test batches checked), and under "stream" phase 12's (the
 demo's launches, launches per chunk, the worst B2 error over phase 12's
-chunks, B2's times at the B=1 step shape, and at B=16).
+chunks, B2's times at the B=1 step shape, and at B=16), and under
+"conformer" phase 13's (launches over the phase, per step and per test
+batch, the B2 calls checked and their worst error).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -174,6 +197,18 @@ STREAM_LEFT, STREAM_SECS = 4, 6
 STREAM_CHUNKS = (16, 32, 64)
 STREAM_TIMED_CHUNKS = 30
 BF16_STREAM_RMS_RATIO = 2.0
+# phase 13: the Conformer family on phase 10's corpus
+CTC_CFG = "configs/training/conformer_ctc.yaml"
+CONF_CFG = "configs/training/conformer_pruned_rnnt.yaml"
+CTC_INFER = {"greedy": "configs/inference/ctc_greedy_search.yaml",
+             "prefix_beam": "configs/inference/ctc_beam_search.yaml"}
+CONF_INFER_CFG = "configs/inference/pruned_rnnt_ctc_greedy_search.yaml"
+CONF_STEPS, CONF_VAL_EVERY, CONF_LOG_EVERY, CONF_RESUME_STEPS = 20, 10, 5, 2
+CONF_RNNT_STEPS = 5
+CTC_KEYS = ("step", "loss", "lr", "utts_per_sec", "frames_per_sec",
+            "train_loss", "grad_norm")
+# f32 tokens, card vs CPU, over the first test batches
+CONF_CPU_BATCHES = 2
 
 
 def card_line():
@@ -848,7 +883,7 @@ def profile_summary(prof, span_names=SPANS):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0
-            and e.key not in SPANS + STREAM_SPANS + ("data",)]
+            and e.key not in SPANS + STREAM_SPANS + ("data", "ctc_loss")]
     rows.sort(key=lambda r: -r[1])
     spans = {}
     for e in prof.events():
@@ -1879,14 +1914,641 @@ def phase_stream(card, report, trained):
     report["stream"] = out
     del task16, task32, sess, demo
     torch.cuda.empty_cache()
-    return {"attn_weights": dict(launches=0, launches_per_chunk=0),
-            "fbank": dict(launches=launches["fbank"], launches_per_chunk=1,
+    return {"attn_weights": dict(
+                launches=launches["attn_weights"],
+                launches_per_chunk=launches["attn_weights"] / n_chunks),
+            "fbank": dict(launches=launches["fbank"],
+                          launches_per_chunk=launches["fbank"] / n_chunks,
                           max_abs_err=worst_log,
                           **{k: latency[1]["fbank"][k] for k in (
                               "ms", "host_ms", "plain_ms", "bound_ms",
                               "bound_by")},
                           ms_b16=latency[16]["fbank"]["ms"],
                           bound_ms_b16=latency[16]["fbank"]["bound_ms"])}
+
+
+# ------------------------------------------------------------ phase 13
+def check_fbank_calls(calls, label):
+    """Every captured B2 call against the plain version (check_mel);
+    returns (calls checked, the worst log-domain error, the worst error as
+    a share of its frame's mel energy) and drops the records."""
+    from speech2text_torch.ops import fbank as fb
+    assert not calls["attn_weights"], \
+        f"{label}: {len(calls['attn_weights'])} B1 calls"
+    worst_log = worst_energy = 0.0
+    with torch.no_grad():
+        for i, (a, got) in enumerate(calls["fbank"]):
+            want = fb.fbank_plain(*a)
+            worst_energy = max(worst_energy,
+                               check_mel(f"{label} B2 call {i}", got, want))
+            worst_log = max(worst_log, float((got - want).abs().max()))
+    n = len(calls["fbank"])
+    for v in calls.values():
+        v.clear()
+    return n, worst_log, worst_energy
+
+
+def counted_main(fn, argv):
+    """`fn(argv)` (build_task's or inference's main) with the kernel
+    counts set to 0 just before it and read just after, and every kernel
+    call captured; returns (its result, wall s, launches, peak memory,
+    captured calls: check and close them)."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = KernelCalls()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = fn(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        calls.close()
+        raise
+    wall = time.perf_counter() - t0
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    return result, wall, launches, torch.cuda.max_memory_allocated(), calls
+
+
+def checked_calls(calls, label, fbank_calls):
+    """check_fbank_calls, then the capture closed; `fbank_calls` (the
+    launches counted) must equal the calls checked."""
+    try:
+        n, worst_log, worst_energy = check_fbank_calls(calls, label)
+    finally:
+        calls.close()
+    assert n == fbank_calls, f"{label}: {n} B2 calls checked of " \
+        f"{fbank_calls} launched"
+    return n, worst_log, worst_energy
+
+
+def conformer_train_run(card, name, cfg, argv, steps, val_every, keys):
+    """build_task's main on `cfg` for `steps` steps (an evaluation and a
+    checkpoint every `val_every`), every B2 call held to the plain
+    version; returns the trainer and the run's record."""
+    from speech2text_torch import build_task
+    trainer, run_s, launches, peak, calls = counted_main(
+        build_task.main, argv + ["--max_steps", str(steps)])
+    task, workdir = trainer.task, trainer.workdir
+    n_checked, worst_log, worst_energy = checked_calls(
+        calls, f"{name} run", launches["fbank"])
+    assert len(task.tokenizer) == 128, \
+        f"{name}: the subword model has {len(task.tokenizer)} labels"
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == list(
+        range(CONF_LOG_EVERY, steps + 1, CONF_LOG_EVERY)), lines
+    bad = [r for r in lines if not _finite_record(r, keys)]
+    assert not bad, f"{name}: metrics lines missing keys or not finite: " \
+        f"{bad}"
+    evals = [h for h in trainer.history if h["eval_s"] > 0]
+    assert [h["step"] for h in evals] == list(
+        range(val_every, steps + 1, val_every)), evals
+    with open(os.path.join(workdir, "checkpoints", "index.json")) as f:
+        index = json.load(f)["checkpoints"]
+    assert sorted(index, key=int) == [str(h["step"]) for h in evals]
+    for step, m in index.items():
+        assert _finite_record(m, ("val_loss", "wer")), (step, m)
+        assert os.path.exists(trainer.ckpt.path(int(step)))
+    eval_batches = task.make_eval_pipeline().batches_per_epoch()
+    want = {"attn_weights": 0, "fbank": 2 * steps + len(evals)
+            * eval_batches}
+    assert launches == want, f"{name}: launches {launches}, expected {want}"
+    hist = trainer.history
+    step_ms = [1e3 * (b["end"] - a["end"]) for a, b in zip(hist, hist[1:])
+               if a["eval_s"] == 0.0]
+    med = statistics.median(step_ms)
+    log(f"conformer {name} (build_task main, {steps} steps, f32): {run_s:.1f}"
+        f" s; median {med:.2f} ms/step over {len(step_ms)} steps "
+        f"({min(step_ms):.2f}-{max(step_ms):.2f}); loop's utt/s "
+        f"{[round(r['utts_per_sec'], 2) for r in lines]}; grad_norm "
+        f"{[round(r['grad_norm'], 2) for r in lines]}; losses "
+        f"{[round(r['loss'], 3) for r in lines]}; eval s "
+        f"{[round(h['eval_s'], 2) for h in evals]} over {eval_batches} "
+        f"batches; evals {index}; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches} (0 B1, 2 B2 per step, 1 per eval batch); "
+        f"{n_checked} B2 calls within check_mel (worst "
+        f"{worst_energy:.3g} of the frame's mel energy, log "
+        f"{worst_log:.3g})", card)
+    return trainer, {
+        "run_s": run_s, "ms_per_step": step_ms, "median_ms": med,
+        "metrics_lines": lines, "eval_s": [h["eval_s"] for h in evals],
+        "eval_batches": eval_batches, "evals": index,
+        "peak_memory_bytes": peak, "launches": launches,
+        "fbank_calls_checked": n_checked, "fbank_max_abs_err": worst_log,
+        "fbank_err_of_energy": worst_energy}
+
+
+def conformer_inference(card, name, argv):
+    """inference.main (0 B1 and 1 B2 launch per test batch; run_inference
+    checks the report), every B2 call held to the plain version; returns
+    the run and the worst log-domain B2 error."""
+    run, _, launches, _, calls = counted_main(
+        lambda args: run_inference(name, args, card, 0), argv)
+    _, worst_log, _ = checked_calls(calls, name, launches["fbank"])
+    assert launches == run["launches"]
+    return run, worst_log
+
+
+def ctc_parts(task, batches):
+    """Per test batch, each part ended by a synchronise: featurize, the
+    model to log-probabilities, each decoder; seconds per batch and the
+    tokens each decoder emitted."""
+    from speech2text_torch.decoding import build_decoding
+    decs = {"greedy": build_decoding({"decode_method": "ctc_greedy_search"}),
+            "prefix_beam": build_decoding({
+                "decode_method": "ctc_prefix_beam_search", "beam_size": 8,
+                "cand_size": 8})}
+    sync = torch.cuda.synchronize
+    parts = {k: [] for k in ("featurize", "encode", *decs)}
+    tokens = dict.fromkeys(decs, 0)
+    with torch.no_grad():
+        for batch in batches:
+            sync()
+            t0 = time.perf_counter()
+            feats, lens = task.featurize(batch)
+            sync()
+            t1 = time.perf_counter()
+            logits, out_lens = task.model(feats, lens)
+            lp = task.loss.predict(logits)
+            sync()
+            parts["featurize"].append(t1 - t0)
+            parts["encode"].append(time.perf_counter() - t1)
+            for name, dec in decs.items():
+                t0 = time.perf_counter()
+                _, counts = dec.decode(lp, out_lens)
+                sync()
+                parts[name].append(time.perf_counter() - t0)
+                tokens[name] += int(counts.sum())
+    return {k: statistics.mean(v) for k, v in parts.items()}, tokens
+
+
+def same_tokens_card_cpu(card_fn, cpu_fn, feats_of, batches, what):
+    """Each of the first CONF_CPU_BATCHES test batches featurized on the
+    card (B2), then decoded by `card_fn` on the card and `cpu_fn` on the
+    CPU from the same features: identical tokens and counts; returns the
+    tokens compared."""
+    n = 0
+    with torch.no_grad():
+        for batch in batches[:CONF_CPU_BATCHES]:
+            feats, lens = feats_of(batch)
+            tg, cg = card_fn(feats, lens)
+            tc, cc = cpu_fn(feats.cpu(), lens.cpu())
+            assert torch.equal(cg.cpu(), cc) and torch.equal(tg.cpu(), tc), \
+                f"{what}: f32 tokens differ between the card and the CPU"
+            n += int(cc.sum())
+    assert n > 0, f"{what}: the seeded model emitted no token"
+    return n
+
+
+def ctc_step_parts(trainer, card):
+    """Wall time of a CTC recipe step's parts on the first batch of a
+    fresh train pipeline, each ended by a synchronise: the training
+    featurize, the model to logits, the CTC loss, the backward, the
+    clipping and AdamW. Medians of 3."""
+    from speech2text_torch.optim import clip_by_global_norm_
+    task = trainer.task
+    it = iter(task.make_train_pipeline(seed=trainer.seed, pin_memory=True))
+    batch = trainer.to_device(next(it))
+    it.close()
+    sync = torch.cuda.synchronize
+    names = ("featurize", "model", "ctc_loss", "backward", "optimizer")
+    times = {k: [] for k in names}
+    for rep in range(3):
+        aug, drop, _ = trainer.generators(rep)
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        feats, lens = task.featurize(batch, aug, training=True)
+        sync()
+        marks.append(time.perf_counter())
+        logits, out_lens = task.model(feats, lens, training=True,
+                                      generator=drop)
+        sync()
+        marks.append(time.perf_counter())
+        loss = task.loss({"logits": logits, "logits_length": out_lens,
+                          "label": batch["label"],
+                          "label_length": batch["label_length"]})
+        sync()
+        marks.append(time.perf_counter())
+        trainer.optimizer.zero_grad()
+        loss.backward()
+        sync()
+        marks.append(time.perf_counter())
+        grads = [p.grad for p in task.model.parameters()
+                 if p.grad is not None]
+        clip_by_global_norm_(grads, trainer.clip,
+                             torch.nn.utils.get_total_norm(grads))
+        trainer.optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(names, marks, marks[1:]):
+            times[k].append(b - a)
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    shape = {"B": int(batch["pcm"].shape[0]), "N": int(batch["pcm"].shape[1]),
+             "T_out": int(out_lens.max()), "U": int(batch["label"].shape[1])}
+    log(f"conformer ctc step parts at B={shape['B']} N={shape['N']} (T' = "
+        f"{shape['T_out']} CTC frames, U = {shape['U']}; median ms, "
+        f"synchronised): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      med.items()), card)
+    return dict(shape, parts_ms=med)
+
+
+def conformer_step_parts(ts, batch, card):
+    """Wall time of the pruned-RNN-T + CTC step's parts, each ended by a
+    synchronise: featurize; the encoder with the Projector head and the
+    predictor; the joiner with the simple loss and prune ranges; the
+    pruned loss; the CTC loss; the backward of the whole loss; the
+    optimizer; and, apart, the CTC loss's forward and backward on the
+    head's logits alone (the frame loop's cost). Medians of 3."""
+    from speech2text_torch.tasks.rnnt import sample_chunk
+    pcm, pcm_lens, labels, lab_lens = batch
+    model, fn = ts.model, ts.loss_fn
+    chunk = sample_chunk(model.encoder.config, ts.host_generator)
+    assert chunk == (-1, -1)
+    sync = torch.cuda.synchronize
+    names = ("featurize", "encoder", "joiner_simple_ranges", "pruned_loss",
+             "ctc_loss", "backward", "optimizer", "ctc_fwd_bwd")
+    times = {k: [] for k in names}
+    for _ in range(3):
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        feats, feat_lens = ts.featurize(pcm, pcm_lens)
+        sync()
+        marks.append(time.perf_counter())
+        enc, enc_lens = model.encoder(feats, feat_lens, training=True,
+                                      generator=ts.generator)
+        dec, dec_lens = model.decoder(enc, enc_lens, training=True,
+                                      generator=ts.generator)
+        pred = model.predictor(labels)
+        sync()
+        marks.append(time.perf_counter())
+        logits, ranges, simple = model.joiner(enc, enc_lens, pred, lab_lens,
+                                              labels)
+        sync()
+        marks.append(time.perf_counter())
+        pruned = fn.pruned_loss({"logits": logits, "ranges": ranges,
+                                 "logits_length": enc_lens, "label": labels,
+                                 "label_length": lab_lens})
+        sync()
+        marks.append(time.perf_counter())
+        ctc_in = {"logits": dec, "logits_length": dec_lens, "label": labels,
+                  "label_length": lab_lens}
+        ctc = fn.ctc_loss(ctc_in)
+        sync()
+        marks.append(time.perf_counter())
+        ts.optimizer.zero_grad()
+        (fn.simple_scale * simple + fn.pruned_scale * pruned
+         + fn.ctc_weight * ctc).backward()
+        sync()
+        marks.append(time.perf_counter())
+        ts.optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        leaf = dec.detach().requires_grad_()
+        fn.ctc_loss(dict(ctc_in, logits=leaf)).backward()
+        sync()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(names, marks, marks[1:]):
+            times[k].append(b - a)
+        del enc, dec, pred, logits, pruned, ctc, leaf
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log("conformer train step parts (median ms, synchronised): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items()) + f" (T' = "
+        f"{int(dec_lens.max())} CTC frames, S = {2 * labels.shape[1] + 1})",
+        card)
+    return med
+
+
+def phase_conformer_step(card, out):
+    """Phase 13 (c): conformer_pruned_rnnt.yaml at its published width
+    through TrainStep at bench.py's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.models.conformer import Conformer
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.train.step import TrainStep
+    from speech2text_torch.config import load_config
+    ts = TrainStep.from_config(CONF_CFG, device="cuda", seed=SEED + 31)
+    model = ts.model
+    enc = model.encoder.config
+    # the YAML's own width and depth (256 x 12, ffn 1024, 4 heads), f32
+    assert isinstance(model.encoder, Conformer) and \
+        dataclasses.asdict(enc) == dict(
+            dataclasses.asdict(type(enc)()),
+            **load_config(CONF_CFG)["encoder"]["config"]) and \
+        enc.dtype == "float32" and enc.dropout > 0
+    assert type(model.decoder).__name__ == "ProjectorDecoder" and \
+        ts.loss_fn.enable_ctc and model.joiner.config.output_dim == 128
+    rng = np.random.default_rng(SEED + 31)
+    pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
+                                            TRAIN_U, 128)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (pcm, lens, labels, lab_lens))
+
+    # dropout is on in training, off in evaluation
+    with torch.no_grad():
+        feats, feat_lens = ts.featurize(batch[0][:2], batch[1][:2])
+        a, _ = model.encoder(feats, feat_lens, training=True,
+                             generator=torch.Generator("cuda").manual_seed(1))
+        b, _ = model.encoder(feats, feat_lens, training=True,
+                             generator=torch.Generator("cuda").manual_seed(2))
+        e1, _ = model.encoder(feats, feat_lens)
+        e2, _ = model.encoder(feats, feat_lens)
+    assert not torch.equal(a, b) and torch.equal(e1, e2), \
+        "dropout is not on in training only"
+
+    t0 = time.perf_counter()
+    warm = ts.step(*batch)
+    torch.cuda.synchronize()
+    log(f"conformer train warm-up step: {time.perf_counter() - t0:.2f} s, "
+        f"losses { {k: round(float(v), 4) for k, v in warm.items()} }")
+    params = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    per_step, times, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        a0, f0 = aw.KERNEL.launches, fb.KERNEL.launches
+        t0 = time.perf_counter()
+        res = ts.step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((aw.KERNEL.launches - a0, fb.KERNEL.launches - f0))
+        losses.append({k: float(v) for k, v in res.items()})
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(r == (0, 1) for r in per_step), \
+        f"launches per step (attn_weights, fbank): {per_step}, expected " \
+        f"(0, 1): TrainStep featurizes the speech batch alone"
+    assert all("ctc_loss" in r and all(math.isfinite(v) for v in r.values())
+               for r in losses), f"non-finite losses {losses}"
+    unchanged = [k for k, p in params.items() if torch.equal(before[k], p)]
+    assert not unchanged, f"parameters not changed: {unchanged}"
+    med = statistics.median(times)
+    log(f"conformer train step ({enc.input_dim} x {enc.num_layers}, ffn "
+        f"{enc.ffn_dim}, {enc.num_heads} heads, f32, Projector + CTC branch) "
+        f"B={B_TRAIN} x {TRAIN_SECS} s U={TRAIN_U}: median {med:.2f} ms/step"
+        f" ({', '.join(f'{x:.2f}' for x in times)}), "
+        f"{B_TRAIN / med * 1e3:.2f} utt/s, peak memory {peak / 2**30:.2f} "
+        f"GiB, launches per step {per_step[0]}, ctc_loss "
+        f"{[round(r['ctc_loss'], 4) for r in losses]}, loss "
+        f"{[round(r['loss'], 4) for r in losses]}; all {len(params)} "
+        f"parameter tensors changed (decoder head included)", card)
+
+    parts = conformer_step_parts(ts, batch, card)
+    spans_names = SPANS + ("ctc_loss",)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows, busy, spans = profile_summary(prof, spans_names)
+    log(f"profiled conformer train step: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[2] for r in rows)} device ops; host time of its spans: "
+        + ", ".join(f"{k} {spans.get(k, float('nan')):.2f} ms"
+                    for k in spans_names), card)
+    for key, ms, n in rows[:10]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
+    out["train_step"] = {
+        "B": B_TRAIN, "seconds": TRAIN_SECS, "U": TRAIN_U,
+        "ms_per_step": times, "median_ms": med,
+        "utt_per_s": B_TRAIN / med * 1e3, "peak_memory_bytes": peak,
+        "launches_per_step": per_step, "losses": losses, "parts_ms": parts,
+        "ctc_share": parts["ctc_fwd_bwd"] / med, "profiled_wall_ms": wall,
+        "device_busy_ms": busy, "span_host_ms": spans,
+        "top_device_ops": rows[:30]}
+    del ts, model, params, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_conformer(card, report, tmp, trained):
+    """Phase 13: the Conformer family on phase 10's synthetic corpus:
+    (a) conformer_ctc.yaml trained through build_task's main, with a
+    bitwise AdamW resume; (b) its greedy and prefix-beam inference YAMLs,
+    f32 tokens on the card equal to the CPU's on seeded weights; (c)
+    conformer_pruned_rnnt.yaml's train step at full width and bench.py's
+    shape; (d) the same YAML through build_task and the
+    pruned_rnnt_ctc_greedy_search inference YAML, f32 tokens on the card
+    equal to the CPU's; (e) 0 B1 launches and every B2 call within
+    check_mel throughout."""
+    from speech2text_torch import build_task
+    from speech2text_torch.decoding import build_decoding
+    from speech2text_torch.optim import Adam
+    from speech2text_torch.tasks.ctc import CtcModel
+    from speech2text_torch.tasks.rnnt import RnntModel
+
+    t_phase = time.perf_counter()
+    out = {}
+    corpus = trained["corpus"]
+
+    def train_argv(cfg, name, *extra):
+        argv = ["--training_config", cfg,
+                "--override", f"task.export_path={tmp}/conformer",
+                "--override", f"dataset.base_dir={tmp}/corpus",
+                "--override", f"trainer.log_interval={CONF_LOG_EVERY}"]
+        for key, path in corpus.items():
+            argv += ["--override", f"dataset.{key}={path}"]
+        for ov in extra:
+            argv += ["--override", ov]
+        return argv
+
+    def infer_argv(cfg, name, train_cfg):
+        return ["--inference_config", cfg,
+                "--override", f"task.train_config={train_cfg}",
+                "--override", f"task.export_path={tmp}/conformer_infer/{name}",
+                "--override", f"testset.test_data={corpus['eval_data']}"]
+
+    # (a) CTC training: 20 steps, an evaluation every 10, top-k by wer
+    argv = train_argv(CTC_CFG, "ctc",
+                      f"trainer.val_check_interval={CONF_VAL_EVERY}")
+    trainer, rec = conformer_train_run(card, "ctc", CTC_CFG, argv,
+                                       CONF_STEPS, CONF_VAL_EVERY, CTC_KEYS)
+    assert isinstance(trainer.optimizer, Adam) and \
+        trainer.optimizer.weight_decay == 1e-2 and trainer.clip == 5.0
+    clipped = sum(r["grad_norm"] > trainer.clip for r in rec["metrics_lines"])
+    workdir = trainer.workdir
+    trainer2, fit_kw = build_task.prepare(
+        argv + ["--max_steps", str(CONF_STEPS + CONF_RESUME_STEPS)])
+    assert trainer2.init_state(fit_kw["resume"],
+                               fit_kw["finetune_state"]) == CONF_STEPS
+    saved = trainer2.ckpt.restore(CONF_STEPS)
+    assert _same_state(saved["model"], trainer2.task.model.state_dict()), \
+        "restored weights differ from the checkpoint"
+    assert _same_state(saved["optimizer"], trainer2.optimizer.state_dict()), \
+        "restored AdamW state differs from the checkpoint"
+    assert saved["optimizer"]["count"] == CONF_STEPS
+    trainer2.fit(**fit_kw)
+    trainer2.close()
+    assert [h["step"] for h in trainer2.history] == list(
+        range(CONF_STEPS + 1, CONF_STEPS + CONF_RESUME_STEPS + 1))
+    assert _finite_record(trainer2.last_eval, ("val_loss", "wer"))
+    log(f"conformer ctc resume: a fresh Trainer restored step {CONF_STEPS} "
+        f"(weights and AdamW moments and count bitwise equal to the file), "
+        f"took steps {[h['step'] for h in trainer2.history]}, eval "
+        f"{trainer2.last_eval}; {clipped} of {len(rec['metrics_lines'])} "
+        f"logged steps clipped (grad_norm > {trainer.clip})", card)
+    rec.update(resume_eval=trainer2.last_eval, logged_clipped=clipped,
+               step_parts=ctc_step_parts(trainer2, card))
+    out["ctc_train"] = rec
+    ctc_train_cfg = os.path.join(workdir, os.path.basename(CTC_CFG))
+    del trainer, trainer2
+
+    # (b) CTC decoding with (a)'s checkpoints: greedy and prefix beam (8)
+    runs, infer_worst = {}, 0.0
+    for name, cfg in CTC_INFER.items():
+        runs[name], err = conformer_inference(
+            card, f"ctc_{name}", infer_argv(cfg, name, ctc_train_cfg))
+        infer_worst = max(infer_worst, err)
+    beam_metric = runs["prefix_beam"]["train_config"]["metric"]
+    assert beam_metric["decode_method"] == "ctc_prefix_beam_search" and \
+        beam_metric["beam_size"] == 8
+    task, dev = runs["greedy"]["task"], runs["greedy"]["device"]
+    batches = device_batches(task, dev)
+    per, ctc_tokens = ctc_parts(task, batches)
+    log(f"conformer ctc decoding: s per test batch (mean of {len(batches)}):"
+        f" featurize {per['featurize']:.4f}, encode {per['encode']:.4f}, "
+        f"greedy {per['greedy']:.4f}, prefix beam (8, 8) "
+        f"{per['prefix_beam']:.4f}; tokens {ctc_tokens} (phase (a)'s "
+        f"weights); corpus WER greedy {runs['greedy']['wer']:.4f}, beam "
+        f"{runs['prefix_beam']['wer']:.4f}", card)
+    seeded = CtcModel.from_config(runs["greedy"]["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(SEED + 32))
+    task.model.load_state_dict(seeded.state_dict())
+    cpu_model = seeded.eval()
+    n_tok = {}
+    for name in CTC_INFER:
+        dec = build_decoding(runs[name]["train_config"]["metric"])
+
+        def run_on(model, feats, lens, dec=dec):
+            logits, out_lens = model(feats, lens)
+            return dec.decode(torch.log_softmax(logits, -1), out_lens)
+
+        n_tok[name] = same_tokens_card_cpu(
+            lambda f, l: run_on(task.model, f, l),
+            lambda f, l: run_on(cpu_model, f, l), task.featurize, batches,
+            f"ctc {name}")
+    log(f"conformer ctc f32 tokens on seeded weights identical on the card "
+        f"and the CPU over {CONF_CPU_BATCHES} test batches (the same B2 "
+        f"features): greedy {n_tok['greedy']}, prefix beam "
+        f"{n_tok['prefix_beam']}", card)
+    out["ctc_decode"] = {
+        "s_per_batch": per, "tokens": ctc_tokens,
+        "wer": {k: r["wer"] for k, r in runs.items()},
+        "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "batches": runs["greedy"]["batches"], "card_cpu_tokens": n_tok}
+    infer_fbank = sum(r["launches"]["fbank"] for r in runs.values())
+    infer_batches = sum(r["batches"] for r in runs.values())
+    per_batch = {f"ctc_{k}": {kernel: n / r["batches"]
+                              for kernel, n in r["launches"].items()}
+                 for k, r in runs.items()}
+    del runs, task, seeded, cpu_model
+    torch.cuda.empty_cache()
+
+    # (c) the pruned RNN-T + CTC step at full width, bench.py's shape
+    step_launches = phase_conformer_step(card, out)
+
+    # (d) the same YAML through build_task, then its inference YAML
+    argv = train_argv(CONF_CFG, "pruned",
+                      f"trainer.val_check_interval={CONF_RNNT_STEPS}")
+    trainer, rec = conformer_train_run(
+        card, "pruned_rnnt", CONF_CFG, argv, CONF_RNNT_STEPS,
+        CONF_RNNT_STEPS, RUN_KEYS + ("ctc_loss",))
+    assert all("val_ctc_loss" in m for m in rec["evals"].values())
+    out["pruned_train"] = rec
+    rnnt_train_cfg = os.path.join(trainer.workdir, os.path.basename(CONF_CFG))
+    del trainer
+    run, err = conformer_inference(card, "pruned_rnnt_ctc_greedy",
+                                   infer_argv(CONF_INFER_CFG, "pruned_greedy",
+                                              rnnt_train_cfg))
+    infer_worst = max(infer_worst, err)
+    task, dev = run["task"], run["device"]
+    batches = device_batches(task, dev)
+    parts, tokens = infer_parts(task, batches)
+    per_r = {k: statistics.mean(v) for k, v in parts.items()}
+    log(f"conformer pruned greedy decoding: s per test batch (mean of "
+        f"{len(batches)}): featurize {per_r['featurize']:.4f}, encode "
+        f"{per_r['encode']:.4f}, decode {per_r['decode']:.4f}; {tokens} "
+        f"tokens; corpus WER {run['wer']:.4f}", card)
+    seeded = RnntModel.from_config(run["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(SEED + 33))
+    task.model.load_state_dict(seeded.state_dict())
+    cpu_model = seeded.eval()
+    cpu_dec = build_decoding(run["train_config"]["metric"],
+                             cpu_model.predictor_step,
+                             cpu_model.predictor.init_state,
+                             cpu_model.joiner_step)
+
+    def rnnt_on(model, dec, feats, lens):
+        enc, enc_lens = model.encoder(feats, lens)
+        return dec.decode(enc, enc_lens)
+
+    n_rnnt = same_tokens_card_cpu(
+        lambda f, l: rnnt_on(task.model, task.decode_session, f, l),
+        lambda f, l: rnnt_on(cpu_model, cpu_dec, f, l), task.featurize,
+        batches, "pruned greedy")
+    log(f"conformer pruned greedy f32 tokens on seeded weights identical on "
+        f"the card and the CPU over {CONF_CPU_BATCHES} test batches: "
+        f"{n_rnnt}", card)
+    out["pruned_decode"] = {"s_per_batch": per_r, "tokens": tokens,
+                            "wer": run["wer"], "wall_s": run["wall_s"],
+                            "launches": run["launches"],
+                            "batches": run["batches"],
+                            "card_cpu_tokens": n_rnnt}
+    infer_fbank += run["launches"]["fbank"]
+    infer_batches += run["batches"]
+    per_batch["pruned_greedy"] = {kernel: n / run["batches"]
+                                  for kernel, n in run["launches"].items()}
+    del run, task, seeded, cpu_model, cpu_dec
+    torch.cuda.empty_cache()
+
+    # (e) launches over the phase: 0 B1; 2 B2 per build_task step, 1 per
+    # TrainStep step and per eval or test batch
+    runs = (out["ctc_train"], out["pruned_train"])
+    fbank_total = sum(r["launches"]["fbank"] for r in runs) + \
+        step_launches["fbank"] + infer_fbank
+    b1_total = sum(r["launches"]["attn_weights"] for r in runs) + \
+        step_launches["attn_weights"]
+    assert b1_total == 0
+    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank
+    worst = max([r["fbank_max_abs_err"] for r in runs] + [infer_worst])
+    wall = time.perf_counter() - t_phase
+    log(f"conformer phase: {wall:.1f} s; launches B1 0, B2 {fbank_total} "
+        f"(2 per build_task step, 1 per TrainStep step, 1 per eval or test "
+        f"batch: {infer_fbank} over {infer_batches} test batches); "
+        f"{checked} B2 calls of the build_task and inference runs within "
+        f"check_mel (worst log error {worst:.3g})", card)
+    out["wall_s"] = wall
+    report["conformer"] = out
+
+    def per_step(kernel):
+        """Launches per training step of each run, measured: the
+        build_task runs' launches less their eval batches', over steps."""
+        steps = {"ctc_build_task": (out["ctc_train"], CONF_STEPS),
+                 "pruned_build_task": (out["pruned_train"], CONF_RNNT_STEPS)}
+        got = {k: (r["launches"][kernel] - (kernel == "fbank")
+                   * len(r["eval_s"]) * r["eval_batches"]) / n
+               for k, (r, n) in steps.items()}
+        got["train_step"] = step_launches[kernel] / TRAIN_STEPS
+        return got
+
+    return {kernel: dict(launches=b1_total if kernel == "attn_weights"
+                         else fbank_total,
+                         launches_per_step=per_step(kernel),
+                         launches_per_batch={k: v[kernel]
+                                             for k, v in per_batch.items()},
+                         **({} if kernel == "attn_weights" else dict(
+                             calls_checked=checked, max_abs_err=worst)))
+            for kernel in ("attn_weights", "fbank")}
 
 
 # ------------------------------------------------------------ compare
@@ -2024,6 +2686,7 @@ def main(argv):
         infer_launches, infer_per_batch, infer_err = phase_infer(
             card, report, tmp, run)
         stream = phase_stream(card, report, run)
+        conformer = phase_conformer(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -2047,7 +2710,8 @@ def main(argv):
              infer=dict(launches=infer_launches["attn_weights"],
                         launches_per_batch=infer_per_batch["attn_weights"],
                         max_abs_err=infer_err["attn_weights"]),
-             stream=stream["attn_weights"]),
+             stream=stream["attn_weights"],
+             conformer=conformer["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -2061,11 +2725,11 @@ def main(argv):
              infer=dict(launches=infer_launches["fbank"],
                         launches_per_batch=infer_per_batch["fbank"],
                         max_abs_err=infer_err["fbank"]),
-             stream=stream["fbank"]),
+             stream=stream["fbank"], conformer=conformer["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer") + (
-            ("stream",) if k["name"] == "fbank" else ())
+            ("stream", "conformer") if k["name"] == "fbank" else ())
         for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"

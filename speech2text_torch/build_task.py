@@ -4,7 +4,9 @@
       --training_config=configs/training/zipformer_stateless_pruned_rnnt.yaml \\
       [--override a.b.c=value ...] [--max_steps N] [--device cpu]
 
-YAML → PrunedRnntTask → Trainer.fit, in `<task.export_path>/<task.name>`:
+YAML → the task of `task.type` (`Pruned_Rnnt`: tasks/rnnt.py:
+PrunedRnntTask; `CTC`: tasks/ctc.py:CtcTask; the other types raise
+NotImplementedError) → Trainer.fit, in `<task.export_path>/<task.name>`:
 seeds, `run.log`, the subword model trained from the train manifest
 (tools/spm_train.py), a backup of the resolved config (written with
 config.dumps, read back by config.load_config), finetuning from a port
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from .config import dumps, load_config, override
-from .tasks.rnnt import PrunedRnntTask
+from .tasks.factory import TaskFactory
 from .tools.spm_train import spm_training_preprocess
 from .train.checkpoint import average_checkpoints
 from .train.loop import Trainer, resolve_device
@@ -76,9 +78,7 @@ def prepare(argv: Optional[List[str]] = None
     device = resolve_device(args.device, trainer_cfg)
 
     task_section = config["task"]
-    if task_section["type"] != "Pruned_Rnnt":
-        raise NotImplementedError(f"task {task_section['type']!r} is not "
-                                  f"ported (Pruned_Rnnt only)")
+    task_cls = TaskFactory(task_section["type"])
     cb = config.get("callbacks") or {}
     cmvn_cb = cb.get("global_cmvn") or {}
     if cmvn_cb.get("apply") and not (cmvn_cb.get("pre_compute_cmvn") and
@@ -105,7 +105,7 @@ def prepare(argv: Optional[List[str]] = None
     with open(os.path.join(workdir,
                            os.path.basename(args.training_config)), "w") as f:
         f.write(dumps(config))
-    task = PrunedRnntTask(config)
+    task = task_cls(config)
     log.info("task %s (%s): vocab=%d, device %s", task_section["name"],
              task_section["type"], len(task.tokenizer), device)
     finetune_state = load_finetune(config.get("finetune") or {})

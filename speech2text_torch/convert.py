@@ -1,7 +1,8 @@
 """flax parameter tree → the port's state_dict.
 
 Input: the `params` tree of speech2text_tpu's RnntModel (top-level
-`encoder`, `predictor`, `joiner`) with numpy leaves, e.g.
+`encoder`, `predictor`, `joiner`, and `decoder` when the head has
+weights) or CtcModel (`encoder`, `decoder`) with numpy leaves, e.g.
 `jax.tree.map(np.asarray, params)`. Layout rules (the inverse of
 tools/convert_zipformer_ref.py's):
 
@@ -11,11 +12,14 @@ tools/convert_zipformer_ref.py's):
 | Conv1d kernel (K, in/g, out)      | weight (out, in/g, K)      |
 | Conv2d kernel (kh, kw, in/g, out) | weight (out, in/g, kh, kw) |
 | Embed embedding (V, E)            | weight (V, E), unchanged   |
+| LayerNorm scale (D,)              | weight (D,), unchanged     |
 
-Module names map one to one, except `stack{i}` → `stacks.{i}`,
-`layer{i}` → `layers.{i}` and the feedforward's `in` → `in_`. Unknown
-keys, missing keys, shape mismatches and the `scan_layers` layout (a
-stacked `layers` subtree) raise.
+A depthwise Conv1d (flax `feature_group_count = D`) has the kernel (K, 1,
+D), hence the weight (D, 1, K). Module names map one to one, flax's
+auto-generated names (`ConformerBlock_3`, `Dense_0`, ...) included,
+except `stack{i}` → `stacks.{i}`, `layer{i}` → `layers.{i}` and the
+feedforward's `in` → `in_`. Unknown keys, missing keys, shape mismatches
+and the `scan_layers` layout (a stacked `layers` subtree) raise.
 
 The LSTM layers of models/rnn_lm.py (flax `rnns_{i}/cell`, an
 OptimizedLSTMCell with kernels `ii, if, ig, io` (in, H) without bias and
@@ -67,7 +71,7 @@ def _torch_key(path: Tuple[str, ...], leaf: np.ndarray
         if perm is None:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {leaf.ndim}")
         return ".".join(parts + ["weight"]), np.transpose(leaf, perm)
-    if last == "embedding":
+    if last in ("embedding", "scale"):
         return ".".join(parts + ["weight"]), leaf
     return ".".join(parts + [last]), leaf
 
@@ -113,8 +117,8 @@ def _entries(params: Dict[str, Any]) -> Iterator[Tuple[str, str,
 
 def flax_to_state_dict(params: Dict[str, Any],
                        model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert `params` for `model` (an RnntModel, an RnnLm or any module
-    whose names follow the flax tree). The result loads with
+    """Convert `params` for `model` (an RnntModel, a CtcModel, an RnnLm or
+    any module whose names follow the flax tree). The result loads with
     `model.load_state_dict(..., strict=True)`."""
     expected = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
@@ -143,6 +147,8 @@ def to_flax(model: nn.Module) -> Dict[str, Any]:
         leaf = value.detach().cpu().float().numpy()
         if last == "weight" and kinds.get(owner) == "Embed":
             last = "embedding"
+        elif last == "weight" and kinds.get(owner) == "LayerNorm":
+            last = "scale"
         elif last == "weight":
             inv = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[leaf.ndim]
             last, leaf = "kernel", np.transpose(leaf, inv)

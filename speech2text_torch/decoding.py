@@ -1,11 +1,19 @@
-"""Batched transducer decoding (port of speech2text_tpu/decoding.py:
-RnntGreedyDecoding, RnntBeamDecoding) and the decoder factory of a
-`metric` config section (`build_decoding`).
+"""Batched decoding (port of speech2text_tpu/decoding.py): CTC greedy and
+prefix beam search over log-probabilities, transducer greedy and beam
+search over encoder frames, and the decoder factory of a `metric` config
+section (`build_decoding`).
 
-Each decoder is one loop over encoder frames, vectorized over the batch
-(and the beam), with no host synchronisation inside: no value is read
-back and no Python branch depends on a tensor's value. Both return
-`(tokens (B, max_tokens) int32, counts (B,) int32)`; the predictor is
+- CTC greedy (`ctc_greedy_reduce`): argmax per frame → repeats collapsed
+  → blanks dropped, compacted to the front of each row.
+- CTC prefix beam (`ctc_prefix_beam_reduce`): K prefixes per utterance,
+  batched over utterances and beams, equal prefixes merged through dual
+  32-bit rolling hashes (see the function).
+
+Each decoder is one loop over frames, vectorized over the batch (and the
+beam), with no host synchronisation inside: no value is read back and no
+Python branch depends on a tensor's value. The CTC decoders return
+`(tokens (B, T) int32, counts (B,) int32)`, the transducer decoders
+`(tokens (B, max_tokens) int32, counts (B,) int32)`; their predictor is
 primed with token 0 (blank), and nothing is emitted past an utterance's
 `enc_len` or beyond `max_tokens`.
 
@@ -72,6 +80,168 @@ def merge_equal_prefixes(scores: torch.Tensor, tokens: torch.Tensor,
     return torch.where(dup, NEG_INF, gmax + torch.log(gsum))
 
 
+# ------------------------------------------------------------------- CTC
+def ctc_greedy_reduce(log_probs: torch.Tensor, lengths: torch.Tensor,
+                      blank: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, V) → (tokens (B, T), counts (B,)): the argmax of each frame
+    (the first of equal maxima), repeats collapsed, blanks and frames at or
+    past `lengths` dropped, the kept tokens compacted to the front."""
+    B, T, _ = log_probs.shape
+    best = log_probs.argmax(dim=-1)
+    prev = torch.nn.functional.pad(best, (1, 0), value=blank)[:, :T]
+    t_idx = torch.arange(T, device=best.device)
+    keep = (best != blank) & (best != prev) & \
+        (t_idx[None, :] < lengths.to(best.device)[:, None])
+    pos = torch.where(keep, keep.long().cumsum(dim=1) - 1, T)
+    out = torch.zeros((B, T + 1), dtype=torch.int64, device=best.device)
+    out.scatter_(1, pos, torch.where(keep, best, 0))
+    return out[:, :T].to(torch.int32), keep.sum(dim=1).to(torch.int32)
+
+
+class CtcGreedyDecoding:
+
+    def __init__(self, blank: int = 0):
+        self._blank = blank
+
+    @torch.no_grad()
+    def decode(self, log_probs: torch.Tensor, lengths: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return ctc_greedy_reduce(log_probs, lengths, blank=self._blank)
+
+
+_HASH_M1, _HASH_M2 = 1000003, 10000019
+_U32 = 0xFFFFFFFF
+
+
+def _segment_logsumexp(x: torch.Tensor, seg: torch.Tensor,
+                       first: torch.Tensor) -> torch.Tensor:
+    """Per row of x (B, N): the logsumexp of each segment `seg` (sorted
+    segment ids) at the segment's first position, NEG_INF elsewhere (JAX's
+    segment_max / segment_sum formulation)."""
+    m = torch.full_like(x, -torch.inf).scatter_reduce(
+        1, seg, x, "amax", include_self=True).clamp(min=NEG_INF)
+    tot = torch.zeros_like(x).scatter_add(1, seg,
+                                          torch.exp(x - m.gather(1, seg)))
+    out = torch.where(tot > 0, torch.log(tot.clamp(min=1e-38)) + m, NEG_INF)
+    return torch.where(first, out.gather(1, seg), NEG_INF)
+
+
+def ctc_prefix_beam_reduce(log_probs: torch.Tensor, lengths: torch.Tensor,
+                           beam_size: int = 8, cand_size: int = 8,
+                           blank: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched CTC prefix beam search: (B, T, V) → (tokens (B, T),
+    counts (B,)) of the best prefix per utterance.
+
+    Per frame, each of the K live prefixes makes one "stay" candidate
+    (the blank mass p_tot·p_blank and the repeat-of-last mass
+    p_nb·p_last) and C = min(cand_size, V) "extend" candidates from the
+    frame's top-C tokens (a repeat of the last token extends only from
+    the blank-ended mass). Equal prefixes among the K·(C+1) candidates are
+    merged: dual 32-bit rolling hashes (h·1000003 + tok + 1 and
+    h·10000019 + tok + 1, wrapping; kept in int64 and masked to 32 bits)
+    sorted lexicographically with the candidate index as the last key,
+    a segmented logsumexp folds each group's (p_b, p_nb) into its first
+    member, and the best K survive (equal scores to the lower index). A
+    frame at or past `lengths` leaves the beams as they are. The same
+    candidates, merge and tie order as the JAX package's."""
+    B, T, V = log_probs.shape
+    K, C = beam_size, min(cand_size, V)
+    N = K + K * C
+    dev = log_probs.device
+    lp_all = log_probs.float()
+    lengths = lengths.to(dev)
+    kar = torch.arange(K, device=dev)
+    toks = torch.zeros((B, K, T), dtype=torch.int64, device=dev)
+    lens = torch.zeros((B, K), dtype=torch.int64, device=dev)
+    pb = torch.full((B, K), NEG_INF, device=dev)
+    pb[:, 0] = 0.0
+    pnb = torch.full((B, K), NEG_INF, device=dev)
+    h1 = torch.ones((B, K), dtype=torch.int64, device=dev)
+    h2 = torch.ones((B, K), dtype=torch.int64, device=dev)
+    c_parent = torch.cat([kar, kar.repeat_interleave(C)])[None].expand(B, N)
+    neg_kc = torch.full((B, K * C), NEG_INF, device=dev)
+    for t in range(T):
+        lp_t = lp_all[:, t]                                       # (B, V)
+        ptot = torch.logaddexp(pb, pnb)
+        last = torch.where(lens > 0, toks.gather(
+            2, (lens - 1).clamp(min=0)[..., None])[..., 0], -1)
+        lp_last = torch.where(last >= 0, lp_t.gather(1, last.clamp(min=0)),
+                              NEG_INF)
+        stay_pb = ptot + lp_t[:, blank:blank + 1]
+        stay_pnb = pnb + lp_last
+        topv, topi = top_k(lp_t, C)                               # (B, C)
+        is_rep = topi[:, None, :] == last[..., None]              # (B, K, C)
+        ext_pnb = torch.where(is_rep, pb[..., None] + topv[:, None, :],
+                              ptot[..., None] + topv[:, None, :])
+        ext_pnb = torch.where((topi == blank)[:, None, :], NEG_INF, ext_pnb)
+        tok1 = topi[:, None, :] + 1
+        h1e = (h1[..., None] * _HASH_M1 + tok1) & _U32
+        h2e = (h2[..., None] * _HASH_M2 + tok1) & _U32
+
+        c_pb = torch.cat([stay_pb, neg_kc], dim=1)                # (B, N)
+        c_pnb = torch.cat([stay_pnb, ext_pnb.reshape(B, -1)], dim=1)
+        c_h1 = torch.cat([h1, h1e.reshape(B, -1)], dim=1)
+        c_h2 = torch.cat([h2, h2e.reshape(B, -1)], dim=1)
+        c_tok = torch.cat([torch.full((B, K), -1, dtype=torch.int64,
+                                      device=dev),
+                           topi[:, None, :].expand(B, K, C).reshape(B, -1)],
+                          dim=1)
+
+        # equal prefixes grouped: (h1, h2) as one signed 64-bit key, the
+        # stable sort breaking ties by candidate index
+        key = (c_h1 - 2 ** 31) * 2 ** 32 + c_h2
+        order = torch.sort(key, dim=1, stable=True).indices
+        s_key = key.gather(1, order)
+        first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                           s_key[:, 1:] != s_key[:, :-1]], dim=1)
+        seg = first.long().cumsum(dim=1) - 1
+        m_pb = _segment_logsumexp(c_pb.gather(1, order), seg, first)
+        m_pnb = _segment_logsumexp(c_pnb.gather(1, order), seg, first)
+
+        _, sel = top_k(torch.logaddexp(m_pb, m_pnb), K)           # (B, K)
+        pick = order.gather(1, sel)
+        parent = c_parent.gather(1, pick)
+        tok = c_tok.gather(1, pick)
+        p_lens = lens.gather(1, parent)
+        new_lens = torch.where(tok >= 0, p_lens + 1, p_lens)
+        new_toks = toks.gather(1, parent[..., None].expand(B, K, T))
+        pos = (new_lens - 1).clamp(0, T - 1)[..., None]
+        cur = new_toks.gather(2, pos)
+        new_toks = new_toks.scatter(2, pos, torch.where(tok[..., None] >= 0,
+                                                        tok[..., None], cur))
+        active = (t < lengths)[:, None]
+        toks = torch.where(active[..., None], new_toks, toks)
+        lens = torch.where(active, new_lens, lens)
+        pb = torch.where(active, m_pb.gather(1, sel), pb)
+        pnb = torch.where(active, m_pnb.gather(1, sel), pnb)
+        h1 = torch.where(active, c_h1.gather(1, pick), h1)
+        h2 = torch.where(active, c_h2.gather(1, pick), h2)
+
+    _, best = top_k(torch.logaddexp(pb, pnb), 1)                  # first max
+    best_toks = toks.gather(1, best[..., None].expand(B, 1, T))[:, 0]
+    return best_toks.to(torch.int32), \
+        lens.gather(1, best)[:, 0].to(torch.int32)
+
+
+class CtcPrefixBeamDecoding:
+
+    def __init__(self, beam_size: int = 8, cand_size: int = 8,
+                 blank: int = 0):
+        self._beam = beam_size
+        self._cand = cand_size
+        self._blank = blank
+
+    @torch.no_grad()
+    def decode(self, log_probs: torch.Tensor, lengths: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return ctc_prefix_beam_reduce(log_probs, lengths,
+                                      beam_size=self._beam,
+                                      cand_size=self._cand,
+                                      blank=self._blank)
+
+
+# ------------------------------------------------------------------ RNN-T
 def _map_state(fn: Callable, *states: Any) -> Any:
     """`fn` over the tensors of a state (a tensor, or lists and tuples of
     them, as the predictor and the LM keep it)."""
@@ -298,17 +468,28 @@ class RnntBeamDecoding:
         return best_tokens.to(torch.int32), best_counts.to(torch.int32)
 
 
-def build_decoding(metric: Dict[str, Any], predictor_step: Callable,
-                   predictor_init_state: Callable, joiner_step: Callable,
+def build_decoding(metric: Dict[str, Any],
+                   predictor_step: Optional[Callable] = None,
+                   predictor_init_state: Optional[Callable] = None,
+                   joiner_step: Optional[Callable] = None,
                    lm_step: Optional[Callable] = None,
                    lm_init_state: Optional[Callable] = None,
                    lm_weight: float = 0.0):
-    """The decoder a config's `metric` section asks for
-    (tasks/rnnt.py:BaseRnntTask): `rnnt_greedy_search` with
-    `max_token_step`; `rnnt_beam_search` with `beam_size` (default 4),
-    `cutoff_top_k` (default 4) and the optional fusion LM. Any other
-    method raises NotImplementedError."""
+    """The decoder a config's `metric` section asks for: over log-probs,
+    `ctc_greedy_search`, and `ctc_prefix_beam_search` with `beam_size`
+    and `cand_size` (default 8 each; tasks/ctc.py); over encoder frames
+    with the predictor and joiner steps, `rnnt_greedy_search` with
+    `max_token_step`, and `rnnt_beam_search` with `beam_size` (default
+    4), `cutoff_top_k` (default 4) and the optional fusion LM
+    (tasks/rnnt.py:BaseRnntTask). `ctc_lexicon_beam_search` (the C++
+    runtime's decoder) and any other method raise NotImplementedError."""
     method = metric.get("decode_method", "rnnt_greedy_search")
+    if method == "ctc_greedy_search":
+        return CtcGreedyDecoding()
+    if method == "ctc_prefix_beam_search":
+        return CtcPrefixBeamDecoding(
+            beam_size=int(metric.get("beam_size", 8)),
+            cand_size=int(metric.get("cand_size", 8)))
     if method == "rnnt_greedy_search":
         return RnntGreedyDecoding(
             predictor_step, predictor_init_state, joiner_step,
@@ -321,4 +502,5 @@ def build_decoding(metric: Dict[str, Any], predictor_step: Callable,
             lm_step=lm_step, lm_init_state=lm_init_state,
             lm_weight=lm_weight)
     raise NotImplementedError(f"decode method {method!r} is not ported "
-                              f"(rnnt_greedy_search, rnnt_beam_search)")
+                              f"(ctc_greedy_search, ctc_prefix_beam_search,"
+                              f" rnnt_greedy_search, rnnt_beam_search)")

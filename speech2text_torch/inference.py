@@ -16,8 +16,10 @@ tops a bucket's last batch up with repeats, as the JAX package's does)
 and the corpus WER, in inference.py's format.
 
 Runs on `cuda` unless `--device cpu` or the YAML's `task.platform: cpu`
-asks for the CPU; with no CUDA device and no such request it raises. Only
-`pruned_rnnt_inference` is ported; the other task types, `module_export`
+asks for the CPU; with no CUDA device and no such request it raises.
+`pruned_rnnt_inference` and `ctc_inference` are ported (the `decoding`
+section's type and config, such as `beam_size` and `cand_size`, go into
+the training config's `metric`); the other task types, `module_export`
 and `onnx_export` raise NotImplementedError.
 """
 
@@ -34,7 +36,7 @@ import torch
 
 from .config import load_config, override
 from .metrics import AsrMetric, word_error_rate
-from .tasks.rnnt import PrunedRnntTask
+from .tasks.factory import TaskFactory
 from .train.checkpoint import inference_weights
 from .train.loop import resolve_device
 from .utils.logging import get_logger, init_logging
@@ -130,9 +132,7 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     device = resolve_device(args.device,
                             {"platform": section.get("platform")})
     task_type = _INFER_TO_TRAIN[section["type"]]
-    if task_type != "Pruned_Rnnt":
-        raise NotImplementedError(f"inference task {section['type']!r} is "
-                                  f"not ported (pruned_rnnt_inference only)")
+    task_cls = TaskFactory(task_type)
     for key in ("module_export", "onnx_export"):
         if section.get(key):
             raise NotImplementedError(f"task.{key} is not ported")
@@ -141,7 +141,7 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     os.makedirs(workdir, exist_ok=True)
     init_logging(os.path.join(workdir, "inference.log"))
     train_cfg = inference_train_config(infer_cfg)
-    task = PrunedRnntTask(train_cfg)
+    task = task_cls(train_cfg)
     task.model.load_state_dict(inference_weights(section, train_cfg))
     task.to(device).eval()
     get_logger().info("task %s, %d labels, weights from %s, device %s",

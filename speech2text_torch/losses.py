@@ -1,8 +1,9 @@
-"""Loss factory (port of speech2text_tpu/losses/__init__.py, the
-`Pruned_Rnnt` key): `Loss({"model": key, "config": {...}})`.
+"""Loss factory (port of speech2text_tpu/losses/__init__.py, the `CTC`
+and `Pruned_Rnnt` keys): `Loss({"model": key, "config": {...}})`.
 
-Only the pruned RNN-T loss is ported; every other key of the JAX factory
-raises NotImplementedError, and an unknown key raises ValueError.
+Each loss is called on a dict of tensors; the CTC loss also has
+`predict(logits)`, the log-softmax its decoders read. The JAX factory's other keys raise
+NotImplementedError; an unknown key raises ValueError.
 """
 
 from __future__ import annotations
@@ -12,11 +13,36 @@ from typing import Any, Dict
 
 import torch
 
+from .ops.ctc import ctc_loss
 from .ops.pruned_rnnt import rnnt_loss_pruned
 
 # the keys of the JAX package's factory
 KNOWN = ("CTC", "Rnnt", "Pruned_Rnnt", "MaskedCELoss", "MaskedKLDiv",
          "MaeLoss")
+
+
+@dataclasses.dataclass
+class CtcLossConfig:
+    blank_label: int = 0
+    reduction: str = "mean"
+
+
+class CtcLoss:
+    """The CTC loss on raw logits (f32 lattice, log_softmax inside); an
+    unreachable lattice gives 0 (zero_infinity, always on, as in the JAX
+    package)."""
+
+    def __init__(self, config: CtcLossConfig):
+        self.config = config
+
+    def __call__(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return ctc_loss(batch["logits"], batch["label"],
+                        batch["logits_length"], batch["label_length"],
+                        blank=self.config.blank_label,
+                        reduction=self.config.reduction)
+
+    def predict(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(logits, dim=-1)
 
 
 @dataclasses.dataclass
@@ -39,16 +65,21 @@ class PrunedRnntLoss:
             reduction=self.config.reduction)
 
 
-def Loss(config: Dict[str, Any]) -> PrunedRnntLoss:
+_PORTED = {"CTC": (CtcLoss, CtcLossConfig),
+           "Pruned_Rnnt": (PrunedRnntLoss, PrunedRnntLossConfig)}
+
+
+def Loss(config: Dict[str, Any]):
     """config = {"model": key, "config": {...}}; config keys the loss does
     not take are ignored, as in the JAX factory."""
     key = config["model"]
     if key not in KNOWN:
         raise ValueError(f"unknown loss {key}; have {sorted(KNOWN)}")
-    if key != "Pruned_Rnnt":
+    if key not in _PORTED:
         raise NotImplementedError(f"loss {key!r} is not ported "
-                                  f"(Pruned_Rnnt only)")
-    valid = {f.name for f in dataclasses.fields(PrunedRnntLossConfig)}
+                                  f"({', '.join(_PORTED)})")
+    cls, cfg_cls = _PORTED[key]
+    valid = {f.name for f in dataclasses.fields(cfg_cls)}
     kwargs = {k: v for k, v in (config.get("config") or {}).items()
               if k in valid}
-    return PrunedRnntLoss(PrunedRnntLossConfig(**kwargs))
+    return cls(cfg_cls(**kwargs))

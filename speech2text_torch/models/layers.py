@@ -9,7 +9,8 @@ initialisers do (`init_parameters`):
 - Dense/Conv kernels: variance_scaling(scale, "fan_in", "truncated_normal")
   (lecun_normal for scale 1; `scaled_init(s)` is scale s²), biases zero;
 - Embed: variance_scaling(1, "fan_in", "normal", out_axis=0), i.e.
-  N(0, 1/features).
+  N(0, 1/features);
+- LayerNorm: scale ones, bias zeros (flax's ε = 1e-6, statistics in f32).
 
 Parameter layouts are PyTorch's (Linear (out, in), Conv (out, in/g, *k));
 speech2text_torch/convert.py maps the flax layouts onto them.
@@ -18,7 +19,7 @@ speech2text_torch/convert.py maps the flax layouts onto them.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +43,17 @@ def variance_scaling_(t: torch.Tensor, scale: float, fan_in: int,
                                   generator=generator)
         else:
             t.normal_(0.0, math.sqrt(scale / fan_in), generator=generator)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax.linen.Dropout: keep with probability 1 − rate and scale by
+    1/(1 − rate); the identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Dense(nn.Module):
@@ -115,6 +127,29 @@ class Embed(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens.long(), self.weight.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm over the last axis: ε = 1e-6 (torch's default
+    is 1e-5), statistics in f32, the result in `dtype`. Its `weight` is
+    flax's `scale`."""
+
+    EPS = 1e-6
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def init_parameters(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight,
+                            self.bias, self.EPS).to(self.dtype)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

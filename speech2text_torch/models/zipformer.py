@@ -44,21 +44,10 @@ from torch import nn
 
 from ..ops.attn_weights import NEG, zip_weights
 from ..ops.masking import chunk_causal_mask, make_non_pad_mask
-from .layers import Conv, Dense, dtype_of
+from .layers import Conv, Dense, dropout, dtype_of
 
 
 # ------------------------------------------------------------- primitives
-def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax.linen.Dropout: keep with probability 1 − rate and scale by
-    1/(1 − rate); the identity outside training or at rate 0."""
-    if not training or rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
-
-
 def _softplus0(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) as logaddexp(0, x) (F.softplus's threshold changes
     the values)."""

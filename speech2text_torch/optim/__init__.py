@@ -1,7 +1,10 @@
-"""Optimizer and learning-rate schedule of the port (ScaledAdam, Eden)."""
+"""Optimizers and learning-rate schedules of the port (Adam, AdamW,
+ScaledAdam; Warmup, Eden, the cosine and Noam-hold schedules)."""
 
+from .adam import Adam, clip_by_global_norm_
 from .scaled_adam import ScaledAdam
-from .schedules import EdenSchedule
+from .schedules import EdenSchedule, WarmupLRSchedule
 from .setup import OptimSetup
 
-__all__ = ["EdenSchedule", "OptimSetup", "ScaledAdam"]
+__all__ = ["Adam", "EdenSchedule", "OptimSetup", "ScaledAdam",
+           "WarmupLRSchedule", "clip_by_global_norm_"]

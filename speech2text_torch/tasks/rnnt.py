@@ -1,15 +1,19 @@
 """Transducer model assembly and the pruned RNN-T task (port of
-speech2text_tpu/tasks/rnnt.py): `RnntModel` (encoder + predictor +
-joiner) with its training forward and the predictor and joiner steps
-decoding needs, the random chunk choice of chunked-causal training
-(`sample_chunk`), the pruned RNN-T task loss (`PrunedRnntLossFn`) and
-`PrunedRnntTask`: the loss of its YAML (`loss`, taken in training by
+speech2text_tpu/tasks/rnnt.py): `RnntModel` (encoder + decoder head +
+predictor + joiner, built by models/factories.py: a Zipformer2 or a
+Conformer encoder, an Identity or Projector head) with its training
+forward and the predictor and joiner steps decoding needs, the random
+chunk choice of chunked-causal training (`sample_chunk`), the pruned
+RNN-T task loss with its optional CTC branch on the head's logits
+(`PrunedRnntLossFn`), the training losses of a step (`train_losses`)
+and `PrunedRnntTask`: the loss of its YAML (taken in training by
 train/step.py:take_step), the evaluation forward with validation losses
 (or, with `metric.encoder_streaming`, the chunk-masked encoder alone:
-simulated streaming), and hypotheses as text from the decoder the
-`metric` section names (decoding.py:build_decoding: greedy, or beam
-search with an optional RNN-LM from `metric.lm_fusion`,
-`load_fusion_lm`). `metric.int8` raises NotImplementedError."""
+simulated streaming; a Conformer runs unmasked, as in JAX), and
+hypotheses as text from the decoder the `metric` section names
+(decoding.py:build_decoding: greedy, or beam search with an optional
+RNN-LM from `metric.lm_fusion`, `load_fusion_lm`). `metric.int8` and a
+CTC decode method raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -22,50 +26,37 @@ from torch.profiler import record_function
 from ..config import from_dict
 from ..decoding import build_decoding, ids_to_texts
 from ..losses import Loss
+from ..models.factories import (DecoderFactory, EncoderFactory,
+                                PredictorFactory)
 from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
-from ..models.predictor import StatelessPredictor, StatelessPredictorConfig
 from ..models.rnn_lm import RnnLm, RnnLmConfig
-from ..models.zipformer import Zipformer2, Zipformer2Config
 from ..train.checkpoint import average_checkpoints
 from .base import AsrTaskBase, Batch
 
 
-def build_encoder(config: Dict[str, Any]) -> nn.Module:
-    if config["model"] != "Zipformer":
-        raise NotImplementedError(
-            f"encoder {config['model']!r} is not ported (Zipformer only)")
-    return Zipformer2(Zipformer2Config.from_config(config.get("config", {})))
-
-
-def build_predictor(config: Dict[str, Any]) -> nn.Module:
-    if config["model"] != "Stateless":
-        raise NotImplementedError(
-            f"predictor {config['model']!r} is not ported (Stateless only)")
-    return StatelessPredictor(from_dict(StatelessPredictorConfig,
-                                        config.get("config", {})))
-
-
 class RnntModel(nn.Module):
-    """Encoder + predictor + joiner in one module tree, whose state_dict
-    is what speech2text_torch/convert.py produces from a flax tree."""
+    """Encoder + decoder head + predictor + joiner in one module tree,
+    whose state_dict is what speech2text_torch/convert.py produces from a
+    flax tree (an Identity head has no weights, and the tree no
+    `decoder`)."""
 
-    def __init__(self, encoder: nn.Module, predictor: nn.Module,
-                 joiner: nn.Module):
+    def __init__(self, encoder: nn.Module, decoder: nn.Module,
+                 predictor: nn.Module, joiner: nn.Module):
         super().__init__()
         self.encoder = encoder
+        self.decoder = decoder
         self.predictor = predictor
         self.joiner = joiner
 
     @classmethod
     def from_config(cls, train_config: Dict[str, Any]) -> "RnntModel":
         """From a training config's encoder/decoder/predictor/joiner
-        sections; the decoder head must be Identity (it has no weights)."""
-        dec = (train_config.get("decoder") or {}).get("model", "Identity")
-        if dec != "Identity":
-            raise NotImplementedError(f"decoder {dec!r} is not ported")
-        return cls(build_encoder(train_config["encoder"]),
-                   build_predictor(train_config["predictor"]),
+        sections (no `decoder` section: Identity)."""
+        return cls(EncoderFactory(train_config["encoder"]),
+                   DecoderFactory(train_config.get("decoder")
+                                  or {"model": "Identity"}),
+                   PredictorFactory(train_config["predictor"]),
                    Joiner(from_dict(JoinerConfig, train_config["joiner"])))
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -77,20 +68,24 @@ class RnntModel(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 chunk_size: int = -1, left_context_chunks: int = -1
                 ) -> Dict[str, torch.Tensor]:
-        """The training forward (RnntModel.__call__): encoder →
-        predictor → joiner; `training` turns on the encoder's dropout and
-        feature mask, drawn from `generator`."""
+        """The training forward (RnntModel.__call__): encoder → decoder
+        head, and encoder → predictor → joiner; `training` turns on the
+        encoder's dropout and feature mask and the head's dropout, drawn
+        from `generator`. A Conformer takes no chunk."""
         with record_function("encoder"):
             enc, enc_lens = self.encoder(feats, feat_lens, chunk_size,
                                          left_context_chunks,
                                          training=training,
                                          generator=generator)
+            dec, dec_lens = self.decoder(enc, enc_lens, training=training,
+                                         generator=generator)
         with record_function("joiner_losses"):
             pred = self.predictor(labels)
             logits, ranges, simple_loss = self.joiner(enc, enc_lens, pred,
                                                       label_lens, labels)
-        return {"enc": enc, "enc_lens": enc_lens, "logits": logits,
-                "ranges": ranges, "simple_loss": simple_loss}
+        return {"enc": enc, "enc_lens": enc_lens, "dec": dec,
+                "dec_lens": dec_lens, "logits": logits, "ranges": ranges,
+                "simple_loss": simple_loss}
 
     def predictor_step(self, token: torch.Tensor, state: torch.Tensor):
         return self.predictor.streaming_step(token, state)
@@ -99,16 +94,19 @@ class RnntModel(nn.Module):
         return self.joiner.streaming_step(enc_frame, pred_out)
 
 
-def sample_chunk(config: Zipformer2Config,
+def sample_chunk(config: Any,
                  generator: torch.Generator) -> Tuple[int, int]:
     """Random chunked-causal training (tasks/rnnt.py:_sample_chunk): a
     (chunk_size, left_context_chunks) pair drawn from the encoder config's
     `chunk_size` and `left_context_frames` lists; (-1, -1), full
-    attention, for a non-causal encoder or the list [-1]. `generator` is
-    a CPU generator: the choice is made on the host."""
+    attention, with nothing drawn, for a non-causal encoder (a Conformer's
+    config has no `causal`) or the list [-1]. `generator` is a CPU
+    generator: the choice is made on the host."""
+    if not getattr(config, "causal", False):
+        return -1, -1
     chunks = list(config.chunk_size or [-1])
     lefts = list(config.left_context_frames or [-1])
-    if not config.causal or chunks == [-1]:
+    if chunks == [-1]:
         return -1, -1
     cs = int(chunks[int(torch.randint(len(chunks), (), generator=generator))])
     lf = int(lefts[int(torch.randint(len(lefts), (), generator=generator))])
@@ -117,30 +115,64 @@ def sample_chunk(config: Zipformer2Config,
 
 
 class PrunedRnntLossFn:
-    """PrunedRnntTask.loss_fn's combination (tasks/rnnt.py:335-354):
-    simple_scale · simple + pruned_scale · pruned, the scales from the
-    YAML `loss` section. The auxiliary CTC branch is not ported."""
+    """PrunedRnntTask.loss_fn's combination (tasks/rnnt.py:329-372):
+    simple_scale · simple + pruned_scale · pruned, plus, with
+    `enable_ctc`, ctc_weight (default 0.3) · the CTC loss (`ctc_config`)
+    of the decoder head's logits; the scales from the YAML `loss`
+    section."""
 
     def __init__(self, loss_config: Dict[str, Any]):
         self.simple_scale = float(loss_config.get("simple_loss_scale", 0.5))
         self.pruned_scale = float(loss_config.get("pruned_loss_scale", 0.5))
-        if loss_config.get("enable_ctc", False):
-            raise NotImplementedError("the pruned task's CTC branch "
-                                      "(enable_ctc) is not ported")
         self.pruned_loss = Loss({"model": "Pruned_Rnnt",
                                  "config": loss_config.get("config", {})})
+        self.enable_ctc = bool(loss_config.get("enable_ctc", False))
+        if self.enable_ctc:
+            self.ctc_weight = float(loss_config.get("ctc_weight", 0.3))
+            self.ctc_loss = Loss({"model": "CTC", "config":
+                                  loss_config.get("ctc_config", {})})
 
     def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
                  label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """{"loss", "simple_loss", "pruned_loss"} and, with the CTC
+        branch, "ctc_loss"."""
         pruned = self.pruned_loss({"logits": out["logits"],
                                    "ranges": out["ranges"],
                                    "logits_length": out["enc_lens"],
                                    "label": labels,
                                    "label_length": label_lens})
         simple = out["simple_loss"]
-        return {"loss": self.simple_scale * simple
-                + self.pruned_scale * pruned,
-                "simple_loss": simple, "pruned_loss": pruned}
+        losses = {"loss": self.simple_scale * simple
+                  + self.pruned_scale * pruned,
+                  "simple_loss": simple, "pruned_loss": pruned}
+        if self.enable_ctc:
+            with record_function("ctc_loss"):
+                ctc = self.ctc_loss({"logits": out["dec"],
+                                     "logits_length": out["dec_lens"],
+                                     "label": labels,
+                                     "label_length": label_lens})
+            losses["loss"] = losses["loss"] + self.ctc_weight * ctc
+            losses["ctc_loss"] = ctc
+        return losses
+
+
+def train_losses(model: RnntModel, loss_fn: PrunedRnntLossFn,
+                 feats: torch.Tensor, feat_lens: torch.Tensor,
+                 labels: torch.Tensor, label_lens: torch.Tensor,
+                 chunk: Tuple[int, int],
+                 generator: Optional[torch.Generator]
+                 ) -> Dict[str, torch.Tensor]:
+    """The training forward with the chunk `chunk` = (chunk_size,
+    left_context_chunks) and dropout and feature masks from `generator`,
+    then `loss_fn`: its losses and "frames", the encoder's output frames
+    (JAX's metric)."""
+    cs, lc = chunk
+    out = model(feats, feat_lens, labels, label_lens, training=True,
+                generator=generator, chunk_size=cs, left_context_chunks=lc)
+    with record_function("joiner_losses"):
+        losses = loss_fn(out, labels, label_lens)
+    losses["frames"] = out["enc_lens"].sum()
+    return losses
 
 
 def load_fusion_lm(metric: Dict[str, Any], num_symbols: int,
@@ -210,6 +242,10 @@ class PrunedRnntTask(AsrTaskBase):
         if metric.get("int8"):
             raise NotImplementedError("metric.int8 (int8 decoding) is not "
                                       "ported")
+        method = metric.get("decode_method", "rnnt_greedy_search")
+        if method.startswith("ctc_"):
+            raise NotImplementedError(f"decode method {method!r} on a "
+                                      f"transducer task")
         self.streaming = streaming_chunks(metric)
         self.lm, lm_weight = load_fusion_lm(metric, len(self.tokenizer),
                                             out_dim)
@@ -233,12 +269,21 @@ class PrunedRnntTask(AsrTaskBase):
         return {"enc": out["enc"], "enc_lens": out["enc_lens"],
                 **self.eval_loss_metrics(out, batch)}
 
+    def train_losses(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                     batch: Batch, generator: Optional[torch.Generator],
+                     chunk_generator: torch.Generator
+                     ) -> Dict[str, torch.Tensor]:
+        """A training step's losses (`train_losses`) with the chunk drawn
+        from `chunk_generator` (a CPU generator)."""
+        chunk = sample_chunk(self.model.encoder.config, chunk_generator)
+        return train_losses(self.model, self.loss, feats, feat_lens,
+                            batch["label"], batch["label_length"], chunk,
+                            generator)
+
     def eval_loss_metrics(self, out: Dict[str, torch.Tensor], batch: Batch
                           ) -> Dict[str, torch.Tensor]:
         losses = self.loss(out, batch["label"], batch["label_length"])
-        return {"val_simple_loss": losses["simple_loss"],
-                "val_pruned_loss": losses["pruned_loss"],
-                "val_loss": losses["loss"]}
+        return {f"val_{k}": v for k, v in losses.items()}
 
     def eval_hyps(self, eval_out: Dict[str, torch.Tensor]) -> List[str]:
         tokens, counts = self.decode_session.decode(eval_out["enc"],

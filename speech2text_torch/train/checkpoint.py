@@ -2,10 +2,11 @@
 speech2text_tpu/train/checkpoint.py with torch files in place of orbax).
 
 Each checkpoint is one `torch.save` file `step_%08d.pt` holding CPU
-tensors: {"model": state_dict, "optimizer": ScaledAdam.state_dict() (its
-buffers, the clipping norms' buffer and the host step count), "step",
-"seed"}. The per-step generators are functions of (seed, step), so seed
-and step restore them. `index.json` has the JAX package's schema,
+tensors: {"model": state_dict, "optimizer": the optimizer's state_dict()
+(ScaledAdam's buffers, the clipping norms' buffer and the host step
+count; Adam's or AdamW's moments and update count), "step", "seed"}.
+The per-step generators are functions of (seed, step), so seed and step
+restore them. `index.json` has the JAX package's schema,
 {"checkpoints": {step: {metric: value}}}, and pruning keeps the same
 steps: the `save_top_k` best by `monitor` (ties to the later step) and
 always the latest. Files are loaded with `weights_only=True`.

@@ -1,7 +1,7 @@
 """The training loop (port of speech2text_tpu/train/loop.py:Trainer).
 
-`Trainer(task, config, workdir, seed, device)` trains a `PrunedRnntTask`
-on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
+`Trainer(task, config, workdir, seed, device)` trains a task (a
+`PrunedRnntTask` or a `CtcTask`) on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
 sets `trainer.platform: cpu`; with no CUDA device and no such request it
 raises. `fit` takes steps until `max_steps` (or `max_epochs` epochs of the
 bucketed pipeline), evaluates and checkpoints every `val_check_interval`
@@ -16,8 +16,9 @@ takes the same steps as one that was never stopped.
 
 No step reads a value back from the card: losses and `grad_norm` stay on
 the device and are read every `log_interval` steps, when a line with the
-JAX loop's keys (step, loss, lr, utts_per_sec, frames_per_sec,
-simple_loss, pruned_loss, train_loss, grad_norm) and the mean data wait
+JAX loop's keys (step, loss, lr, utts_per_sec, frames_per_sec, the
+task's losses (train_loss; simple_loss, pruned_loss and ctc_loss for the
+pruned task), grad_norm: the norm before clipping) and the mean data wait
 of the interval (data_wait_ms) goes to `metrics.jsonl` and TensorBoard.
 Batches arrive in pinned host memory (on `cuda`) and are copied without
 blocking. `next(train_iter)` is a `torch.profiler.record_function("data")`
@@ -43,10 +44,9 @@ from torch.profiler import record_function
 from ..decoding import reference_decoder
 from ..metrics import AsrMetric
 from ..optim import OptimSetup
-from ..tasks.rnnt import sample_chunk
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
-from .step import take_step
+from .step import clip_value, take_step
 from .tb_writer import TensorBoardWriter
 
 log = get_logger(__name__)
@@ -116,10 +116,7 @@ class Trainer:
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         self.seed = seed
-        opt_type = config["optim_setup"]["optimizer"]["type"]
-        if tcfg.get("gradient_clip_val") and opt_type != "ScaledAdam":
-            raise NotImplementedError("gradient_clip_val is ported for "
-                                      "ScaledAdam, which clips by itself")
+        self.clip = clip_value(config)
         task.model.init_weights(torch.Generator().manual_seed(seed))
         task.to(self.device)
         self.optimizer = None
@@ -211,17 +208,19 @@ class Trainer:
     def train_step(self, batch: Dict[str, Any], step: int
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step on a device batch: the training featurize
-        (augmentation from the step's generator), the step's chunk, then
-        train/step.py:take_step. Returns the step's metrics (train_loss,
-        simple_loss, pruned_loss, grad_norm, frames) as 0-d tensors on the
-        device."""
+        (augmentation from the step's generator), then train/step.py:
+        take_step over the task's `train_losses` (dropout and the chunk
+        from the step's generators) with the config's clipping. Returns
+        the step's metrics (train_loss, the task's other losses,
+        grad_norm, frames) as 0-d tensors on the device."""
         task = self.task
         augment_gen, dropout_gen, chunk_gen = self.generators(step)
         feats, feat_lens = task.featurize(batch, augment_gen, training=True)
-        chunk = sample_chunk(task.model.encoder.config, chunk_gen)
-        metrics = take_step(task.model, task.loss, self.optimizer, feats,
-                            feat_lens, batch["label"], batch["label_length"],
-                            chunk, dropout_gen)
+        metrics = take_step(
+            task.model,
+            lambda: task.train_losses(feats, feat_lens, batch, dropout_gen,
+                                      chunk_gen),
+            self.optimizer, self.clip)
         metrics["train_loss"] = metrics.pop("loss")
         return metrics
 
@@ -301,7 +300,8 @@ class Trainer:
 
     # ---------------------------------------------------------- evaluate
     def evaluate(self) -> Dict[str, float]:
-        """Validation losses (the mean over eval batches) and greedy WER
+        """Validation losses (the mean over eval batches) and the WER of
+        the task's decoder
         over one epoch of the eval pipeline."""
         task = self.task
         pipe = task.make_eval_pipeline(pin_memory=self._pin)

@@ -1,18 +1,23 @@
-"""The flagship training step (port of bench.py:one_step with the pruned
-task's loss, speech2text_tpu/tasks/rnnt.py:335-354).
+"""The training step (port of bench.py:one_step with the pruned task's
+loss, speech2text_tpu/tasks/rnnt.py:329-372, and of the train step of
+speech2text_tpu/train/loop.py).
 
-`take_step` is the step's body, shared with train/loop.py's Trainer: the
-model in training mode (dropout, feature mask and the chunk drawn for the
-step) → simple_scale·simple + pruned_scale·pruned → backward → gradient
-norm → optimizer step, returning the losses, the gradient norm and the
-output frames as 0-d tensors on the device (reading them waits for the
-card).
+`take_step` is the step's body, shared by `TrainStep` and
+train/loop.py's Trainer for every task: the task's training losses (a
+callable: the model in training mode → its loss combination) →
+backward → gradient norm → optionally optax's global-norm clipping
+(`trainer.gradient_clip_val` for an optimizer other than ScaledAdam,
+which clips by itself) → optimizer step, returning the losses, the
+gradient norm before clipping and the frames as 0-d tensors on the
+device (reading them waits for the card).
 
 `TrainStep.from_config(train_config, device="cuda", seed=0)` builds, from
-a training YAML (a path or a loaded dict), the featurizer of its
-`dataset`/`callbacks` sections (tasks/base.py), the model (seeded random
-weights), the loss combination of its `loss` section and ScaledAdam with
-its schedule from `optim_setup`, with no tokenizer or data pipeline.
+a pruned RNN-T training YAML (a path or a loaded dict; a Zipformer2 or a
+Conformer encoder, an Identity or Projector head, the CTC branch of
+`loss.enable_ctc`), the featurizer of its `dataset`/`callbacks` sections
+(tasks/base.py), the model (seeded random weights), the loss combination
+of its `loss` section and the optimizer with its schedule from
+`optim_setup`, with no tokenizer or data pipeline.
 `step(pcm, pcm_lens, labels, label_lens)` featurizes (int16 or f32 PCM →
 fbank through kernel B2 on the card → CMVN; no dither or augmentation)
 and takes the step on caller-made tensors.
@@ -23,9 +28,10 @@ from a CPU generator, both seeded with `seed`.
 
 The step's phases are `torch.profiler.record_function` spans, which a
 profiler reads and which cost nothing without one: "featurize",
-"encoder" and "joiner_losses" (predictor, joiner with the simple loss and
-prune ranges, pruned loss; the two model spans are RnntModel.forward's),
-"backward" and "optimizer" (with the gradient norm).
+"encoder" (with the decoder head) and "joiner_losses" (predictor, joiner
+with the simple loss and prune ranges, pruned loss and, inside it,
+"ctc_loss"; the two model spans are RnntModel.forward's), "backward" and
+"optimizer" (with the gradient norm and the clipping).
 """
 
 from __future__ import annotations
@@ -38,38 +44,46 @@ import torch
 from torch.profiler import record_function
 
 from ..config import load_config
-from ..optim import OptimSetup
+from ..optim import OptimSetup, clip_by_global_norm_
 from ..tasks.base import Featurizer
-from ..tasks.rnnt import PrunedRnntLossFn, RnntModel, sample_chunk
+from ..tasks.rnnt import PrunedRnntLossFn, RnntModel, sample_chunk, \
+    train_losses
 
 
-def take_step(model: RnntModel, loss_fn: Callable[..., Dict[str, torch.Tensor]],
-              optimizer: torch.optim.Optimizer, feats: torch.Tensor,
-              feat_lens: torch.Tensor, labels: torch.Tensor,
-              label_lens: torch.Tensor, chunk: Tuple[int, int],
-              generator: Optional[torch.Generator]
+def clip_value(config: Dict[str, Any]) -> Optional[float]:
+    """The global-norm clip of a training config: `trainer.
+    gradient_clip_val` unless the optimizer is ScaledAdam (train/loop.py
+    of the JAX package chains optax.clip_by_global_norm before every
+    other optimizer)."""
+    clip = (config.get("trainer") or {}).get("gradient_clip_val")
+    if not clip or config["optim_setup"]["optimizer"]["type"] == \
+            "ScaledAdam":
+        return None
+    return float(clip)
+
+
+def take_step(model: torch.nn.Module,
+              losses_fn: Callable[[], Dict[str, torch.Tensor]],
+              optimizer, clip: Optional[float] = None
               ) -> Dict[str, torch.Tensor]:
-    """One optimizer step on features: `model` in training mode with the
-    chunk `chunk` = (chunk_size, left_context_chunks) and dropout and
-    feature masks from `generator`, `loss_fn` (a PrunedRnntLossFn),
-    backward, the gradient norm before clipping, `optimizer` (ScaledAdam).
-    Returns {"loss", "simple_loss", "pruned_loss", "grad_norm", "frames"}
-    as 0-d tensors on the device."""
+    """One optimizer step of `model`: `losses_fn()` (the training
+    forward; a dict with "loss", the other losses and "frames"),
+    backward, the gradient norm, clipping to `clip` by optax's rule, the
+    optimizer. Returns the losses, "grad_norm" (before clipping) and
+    "frames" as 0-d tensors on the device."""
     optimizer.zero_grad()
-    cs, lc = chunk
-    out = model(feats, feat_lens, labels, label_lens, training=True,
-                generator=generator, chunk_size=cs, left_context_chunks=lc)
-    with record_function("joiner_losses"):
-        losses = loss_fn(out, labels, label_lens)
+    losses = losses_fn()
     with record_function("backward"):
         losses["loss"].backward()
     with record_function("optimizer"):
         with torch.no_grad():
-            grad_norm = torch.nn.utils.get_total_norm(
-                [p.grad for p in model.parameters() if p.grad is not None])
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            grad_norm = torch.nn.utils.get_total_norm(grads)
+            if clip is not None:
+                clip_by_global_norm_(grads, clip, grad_norm)
         optimizer.step()
     return {**{k: v.detach() for k, v in losses.items()},
-            "grad_norm": grad_norm, "frames": out["enc_lens"].sum()}
+            "grad_norm": grad_norm}
 
 
 class TrainStep:
@@ -89,6 +103,7 @@ class TrainStep:
         self.loss_fn = PrunedRnntLossFn(config["loss"])
         self.optimizer, _ = OptimSetup(config["optim_setup"],
                                        self.model.parameters())
+        self.clip = clip_value(config)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.host_generator = torch.Generator().manual_seed(seed)
 
@@ -114,8 +129,9 @@ class TrainStep:
              chunk: Optional[Tuple[int, int]] = None
              ) -> Dict[str, torch.Tensor]:
         """One training step; returns take_step's {"loss",
-        "simple_loss", "pruned_loss", "grad_norm", "frames"}, the losses
-        of the step's forward, before the update. `chunk` =
+        "simple_loss", "pruned_loss" (and "ctc_loss" with the CTC branch),
+        "grad_norm", "frames"}, the losses of the step's forward, before
+        the update. `chunk` =
         (chunk_size, left_context_chunks) fixes the chunk choice; by
         default it is drawn from the encoder config's lists."""
         feats, feat_lens = self.featurize(pcm, pcm_lens)
@@ -123,5 +139,8 @@ class TrainStep:
         if chunk is None:
             chunk = sample_chunk(self.model.encoder.config,
                                  self.host_generator)
-        return take_step(self.model, self.loss_fn, self.optimizer, feats,
-                         feat_lens, labels, label_lens, chunk, self.generator)
+        return take_step(
+            self.model,
+            lambda: train_losses(self.model, self.loss_fn, feats, feat_lens,
+                                 labels, label_lens, chunk, self.generator),
+            self.optimizer, self.clip)

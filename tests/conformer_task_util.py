@@ -1,0 +1,101 @@
+"""Shared fixtures of the Conformer family's port tests
+(tests/test_torch_ctc_task.py, tests/test_torch_conformer_inference.py):
+a synthetic corpus with its subword model, and the training configs of a
+tiny CTC and a tiny pruned RNN-T + CTC Conformer on it."""
+
+import json
+import os
+
+from speech2text_torch.data.manifest import iter_text, load_manifest
+from speech2text_torch.data.spm import train_unigram
+from speech2text_torch.data.tokenizer import TokenizerSetup
+from speech2text_torch.tools.synth_corpus import write_corpus
+
+D = 32
+ENCODER = {"model": "Conformer", "config": {
+    "feats_dim": 80, "subsampling_rate": 4, "input_dim": D, "num_heads": 4,
+    "ffn_dim": 64, "num_layers": 1, "depthwise_conv_kernel_size": 7,
+    "output_dim": D, "dropout": 0.0}}
+
+
+def make_corpus(out):
+    """The corpus under `out` (a path) and its subword model: the
+    manifests' paths by dataset key, "spm_model" and "vocab"."""
+    paths = write_corpus(str(out), seed=21, n_train=16, n_eval=8, n_noise=2,
+                         train_seconds=(1.0, 2.0), eval_seconds=(1.0, 2.5),
+                         noise_seconds=(0.5, 1.5))
+    model = train_unigram(iter_text(load_manifest(paths["train_data"])),
+                          vocab_size=48)
+    paths["spm_model"] = str(out / "tokenizer.model")
+    model.save(paths["spm_model"])
+    paths["vocab"] = len(TokenizerSetup(
+        {"type": "subword", "config": {"spm_model": paths["spm_model"]}}))
+    return paths
+
+
+def dataset_config(corpus):
+    return {"train_data": corpus["train_data"],
+            "eval_data": corpus["eval_data"],
+            "noise_data": corpus["noise_data"],
+            "dur_min_filter": 0.1, "dur_max_filter": 60.0, "batch_size": 4,
+            "use_bucket_sampler": True,
+            "bucket_sampler_config": {"num_bucket": 1, "min_batch_size": 3,
+                                      "volume_threshold": 6.0},
+            "feat_type": "lhotes_fbank",
+            "feat_config": {"num_mel_bins": 80, "snip_edges": True},
+            "data_aug_config": {"use_speed_perturb": True}}
+
+
+def ctc_config(corpus, workdir):
+    return {
+        "task": {"type": "CTC", "name": os.path.basename(workdir),
+                 "export_path": os.path.dirname(workdir)},
+        "tokenizer": {"type": "subword",
+                      "config": {"spm_model": corpus["spm_model"]}},
+        "dataset": dataset_config(corpus),
+        "encoder": ENCODER,
+        "decoder": {"model": "Projector", "config": {
+            "input_dim": D, "num_classes": corpus["vocab"],
+            "dropout_p": 0.0}},
+        "loss": {"model": "CTC", "config": {"blank_label": 0,
+                                            "reduction": "mean",
+                                            "zero_infinity": True}},
+        "metric": {"decode_method": "ctc_greedy_search"},
+        "optim_setup": {"optimizer": {"type": "AdamW",
+                                      "config": {"lr": 0.001}},
+                        "lr_scheduler": {"type": "Warmup",
+                                         "config": {"warmup_steps": 500}}},
+        "trainer": {"mesh": {"data": 1, "model": 1}, "log_interval": 1,
+                    "val_check_interval": 1000, "gradient_clip_val": 5.0},
+        "callbacks": {"model_chkpt_config": {"monitor": "wer", "mode": "min",
+                                             "save_top_k": 2},
+                      "global_cmvn": {"apply": False}},
+    }
+
+
+def pruned_config(corpus, workdir):
+    vocab = corpus["vocab"]
+    cfg = ctc_config(corpus, workdir)
+    cfg.update({
+        "task": dict(cfg["task"], type="Pruned_Rnnt"),
+        "predictor": {"model": "Stateless", "config": {
+            "num_symbols": vocab, "output_dim": D,
+            "symbol_embedding_dim": 24, "context_size": 2}},
+        "joiner": {"input_dim": D, "output_dim": vocab, "prune_range": 3,
+                   "use_out_project": False},
+        "loss": {"model": "Pruned_Rnnt", "simple_loss_scale": 0.5,
+                 "pruned_loss_scale": 0.5, "enable_ctc": True,
+                 "ctc_weight": 0.3,
+                 "config": {"termination_symbol": 0, "reduction": "mean"}},
+        "metric": {"decode_method": "rnnt_greedy_search",
+                   "max_token_step": 1},
+        "optim_setup": {"optimizer": {"type": "ScaledAdam",
+                                      "config": {"lr": 0.045}},
+                        "lr_scheduler": {"type": "Eden",
+                                         "config": {"lr_batches": 7000}}}})
+    return cfg
+
+
+def metrics_lines(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]

@@ -29,7 +29,9 @@ from speech2text_tpu.models.predictor import StatelessPredictor as JPred
 from speech2text_tpu.models.rnn_lm import RnnLm as JLm
 from speech2text_tpu.models.rnn_lm import RnnLmConfig as JLmConfig
 from speech2text_torch.convert import flax_to_state_dict, to_flax
-from speech2text_torch.decoding import (NEG_INF, RnntBeamDecoding,
+from speech2text_torch.decoding import (NEG_INF, CtcGreedyDecoding,
+                                        CtcPrefixBeamDecoding,
+                                        RnntBeamDecoding,
                                         RnntGreedyDecoding, build_decoding,
                                         ids_to_texts, merge_equal_prefixes,
                                         top_k)
@@ -381,7 +383,12 @@ def test_build_decoding(tiny):
                           lm_init_state=tiny["lm"].init_state,
                           lm_weight=0.3)
     assert (beam._W, beam._K, beam._lm_weight) == (3, 2, 0.3)
-    for method in ("ctc_greedy_search", "ctc_prefix_beam_search",
-                   "cif_greedy_search"):
+    # the CTC methods decode log-probs (tests/test_torch_ctc.py)
+    assert isinstance(build_decoding({"decode_method": "ctc_greedy_search"},
+                                     *args), CtcGreedyDecoding)
+    assert isinstance(build_decoding(
+        {"decode_method": "ctc_prefix_beam_search"}, *args),
+        CtcPrefixBeamDecoding)
+    for method in ("cif_greedy_search", "ctc_lexicon_beam_search"):
         with pytest.raises(NotImplementedError, match=method):
             build_decoding({"decode_method": method}, *args)

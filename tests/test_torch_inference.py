@@ -300,7 +300,7 @@ def test_unported_options_raise(setup, monkeypatch):
     base = ["--inference_config", setup["infer"], "--device", "cpu",
             "--override", f"task.checkpoints_dir={setup['ckpt']['torch']}",
             "--override", f"task.export_path={setup['root'] / 'unported'}"]
-    for ov in ("task.type=ctc_inference", "task.type=rnnt_inference",
+    for ov in ("task.type=rnnt_inference",
                "task.type=ctc_hybrid_rnnt_inference",
                "task.type=cif_inference", "task.module_export=true",
                "task.onnx_export=true", "decoding.config.int8=true",

@@ -30,7 +30,11 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.data.dataset, speech2text_torch.tasks.base, "
         "speech2text_torch.tools.synth_corpus, speech2text_torch.inference, "
         "speech2text_torch.decoding, speech2text_torch.models.rnn_lm, "
-        "speech2text_torch.streaming, speech2text_torch.tools.stream_demo\n"
+        "speech2text_torch.streaming, speech2text_torch.tools.stream_demo, "
+        "speech2text_torch.models.conformer, speech2text_torch.models.decoder, "
+        "speech2text_torch.models.factories, speech2text_torch.ops.ctc, "
+        "speech2text_torch.optim.adam, speech2text_torch.tasks.ctc, "
+        "speech2text_torch.tasks.factory\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -4,7 +4,13 @@ optax version of the JAX package: a 14-step trajectory on a synthetic tree
 crosses the size-update boundaries, the end of the no-clip window (step
 10), a step with an infinite grad and a clipped step. Tolerance: rtol
 1e-5, atol 2e-6, as tests/test_scaled_adam_oracle.py holds the optax
-version to icefall's."""
+version to icefall's.
+
+Adam and AdamW with the Warmup schedule and global-norm clipping against
+the JAX package's OptimSetup chained after optax.clip_by_global_norm,
+as its train loop chains them: 5 updates, each clipped, within rtol
+1e-6; the four other schedules against JAX's over 10 steps, within
+rtol 1e-6 plus 1e-6 of the base lr (JAX's f32 rounding)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +21,10 @@ import torch
 
 from speech2text_tpu.optim import schedules as jsched
 from speech2text_tpu.optim.scaled_adam import scaled_adam
-from speech2text_torch.optim import EdenSchedule, OptimSetup, ScaledAdam
+from speech2text_tpu.optim.setup import OptimSetup as JOptimSetup
+from speech2text_torch.optim import (Adam, EdenSchedule, OptimSetup,
+                                     ScaledAdam, clip_by_global_norm_)
+from speech2text_torch.optim.setup import build_schedule
 
 SHAPES = {"a": (4, 3), "b": (4, 3), "c": (6,), "s": (), "w": (2, 3, 4),
           "x": (4, 3), "z": (1,)}
@@ -99,11 +108,78 @@ def test_optim_setup():
         0.045, lr_batches=7000)(100)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("over", [
-    {"optimizer": {"type": "Adam", "config": {}}},
-    {"lr_scheduler": {"type": "Warmup", "config": {}}},
-    {"lr_scheduler": {}},
-    {"seperate_lr": {"apply": True, "config": {"encoder_lr": 1e-3}}}])
-def test_optim_setup_rejects_the_unported(over):
-    with pytest.raises(NotImplementedError):
+SEPARATE = {"apply": True, "config": {"encoder_lr": 1e-3}}
+
+
+@pytest.mark.parametrize("over,exc", [
+    ({"optimizer": {"type": "SGD", "config": {}}}, ValueError),
+    ({"lr_scheduler": {"type": "Step", "config": {}}}, ValueError),
+    ({"optimizer": {"type": "AdamW", "config": {}},
+      "seperate_lr": SEPARATE}, NotImplementedError),
+    ({"seperate_lr": SEPARATE}, NotImplementedError)])
+def test_optim_setup_rejects_the_unported(over, exc):
+    with pytest.raises(exc):
         OptimSetup(_setup(**over), [torch.zeros(3, requires_grad=True)])
+
+
+@pytest.mark.parametrize("kind", ["AdamW", "Adam"])
+def test_adam_warmup_clipping_matches_optax(kind):
+    cfg = {"optimizer": {"type": kind, "config": {"lr": 0.05}},
+           "lr_scheduler": {"type": "Warmup",
+                            "config": {"warmup_steps": 3}}}
+    rng = np.random.default_rng(1)
+    shapes = {k: s for k, s in SHAPES.items() if k != "s"}
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * 3).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(5)]
+    tx, jsched_fn = JOptimSetup(cfg)
+    tx = optax.chain(optax.clip_by_global_norm(5.0), tx)
+    params = jax.tree.map(jnp.asarray, init)
+    state = tx.init(params)
+    order = sorted(shapes, reverse=True)
+    tp = {k: torch.tensor(init[k]).requires_grad_() for k in order}
+    opt, sched = OptimSetup(cfg, [tp[k] for k in order])
+    assert isinstance(opt, Adam) and opt.weight_decay == (
+        1e-2 if kind == "AdamW" else 0.0)
+    for i, g in enumerate(grads):
+        upd, state = tx.update(jax.tree.map(jnp.asarray, g), state, params)
+        params = optax.apply_updates(params, upd)
+        for k in order:
+            tp[k].grad = torch.tensor(g[k])
+        gs = [tp[k].grad for k in order]
+        norm = torch.nn.utils.get_total_norm(gs)
+        assert float(norm) > 5.0                    # the clip is active
+        clip_by_global_norm_(gs, 5.0, norm)
+        opt.step()
+        for k in order:
+            np.testing.assert_allclose(
+                tp[k].detach().numpy(), np.asarray(params[k]), rtol=1e-6,
+                atol=1e-7, err_msg=f"update {i} param {k}")
+        assert sched(i) == pytest.approx(float(jsched_fn(i)), rel=1e-6)
+    assert opt.count == 5
+    # the state round-trips bitwise
+    again, _ = OptimSetup(cfg, [tp[k] for k in order])
+    again.load_state_dict(opt.state_dict())
+    assert again.count == 5 and all(
+        torch.equal(a, b) for a, b in zip(again.mu + again.nu,
+                                          opt.mu + opt.nu))
+
+
+@pytest.mark.parametrize("kind,c", [
+    ("Warmup", {"warmup_steps": 4}),
+    ("Cosine_Warmup", {"warmup_steps": 3, "total_steps": 9,
+                       "min_lr": 1e-4}),
+    ("Cosine_Annealing", {"T_max": 8, "eta_min": 1e-5}),
+    ("Noam_Hold_Annealing", {"warmup_steps": 2, "hold_steps": 3,
+                             "total_steps": 9, "decay_rate": 0.7})])
+def test_schedules_match_jax(kind, c):
+    # JAX computes in f32, the port in float64: within f32 rounding of
+    # the base lr (the cosine's 1 + cos(π·p) cancels near its end)
+    from speech2text_tpu.optim.setup import _build_schedule
+    lr = 0.002
+    want = _build_schedule(kind, lr, c)
+    got = build_schedule(kind, lr, c)
+    for step in range(10):
+        np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6,
+                                   atol=1e-6 * lr, err_msg=f"step {step}")

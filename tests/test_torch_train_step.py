@@ -218,6 +218,6 @@ def test_chunk_sampling_and_unported_options():
     with pytest.raises(NotImplementedError):
         TrainStep.from_config(bad, device="cpu")
     bad = _config()
-    bad["loss"]["enable_ctc"] = True
+    bad["predictor"]["model"] = "Lstm"
     with pytest.raises(NotImplementedError):
         TrainStep.from_config(bad, device="cpu")
