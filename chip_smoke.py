@@ -209,6 +209,18 @@ CTC_KEYS = ("step", "loss", "lr", "utts_per_sec", "frames_per_sec",
             "train_loss", "grad_norm")
 # f32 tokens, card vs CPU, over the first test batches
 CONF_CPU_BATCHES = 2
+# phase 14: the remaining transducer recipes on phase 10's corpus
+HELDOUT_CFG = "configs/training/zipformer_heldout.yaml"
+HELDOUT_STEPS, HELDOUT_LOG_EVERY = 10, 5
+RNNT_CFG = "configs/training/conformer_rnnt.yaml"
+HYBRID_CFG = "configs/training/conformer_hybrid_rnnt.yaml"
+RNNT_STEPS = 5
+RNNT_INFER = {
+    "rnnt_greedy_search": ("configs/inference/rnnt_greedy_search.yaml",
+                           "rnnt"),
+    "rnnt_beam_search": ("configs/inference/rnnt_beam_search.yaml", "rnnt"),
+    "ctc_hybrid_rnnt_greedy_search": (
+        "configs/inference/ctc_hybrid_rnnt_greedy_search.yaml", "hybrid")}
 
 
 def card_line():
@@ -872,6 +884,9 @@ def phase_train_f32(card, report):
 
 SPANS = ("featurize", "encoder", "joiner_losses", "backward", "optimizer")
 STREAM_SPANS = ("featurize", "encoder", "greedy")
+# spans inside the step's: the data wait, the CTC and full-lattice RNN-T
+# losses, the training dynamics' extra backward
+EXTRA_SPANS = ("data", "ctc_loss", "rnnt_loss", "regularizers_backward")
 
 
 def profile_summary(prof, span_names=SPANS):
@@ -883,7 +898,7 @@ def profile_summary(prof, span_names=SPANS):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0
-            and e.key not in SPANS + STREAM_SPANS + ("data", "ctc_loss")]
+            and e.key not in SPANS + STREAM_SPANS + EXTRA_SPANS]
     rows.sort(key=lambda r: -r[1])
     spans = {}
     for e in prof.events():
@@ -898,6 +913,21 @@ def spans_text(spans):
                      for name in SPANS)
 
 
+def bench_batch(vocab):
+    """bench.py's batch on the card: B_TRAIN utterances of TRAIN_SECS s of
+    noise, TRAIN_U labels each, from SEED."""
+    rng = np.random.default_rng(SEED)
+    N = TRAIN_SECS * SR
+    pcm = torch.from_numpy((0.1 * rng.standard_normal((B_TRAIN, N)))
+                           .astype(np.float32)).cuda()
+    pcm_lens = torch.full((B_TRAIN,), N, dtype=torch.int32, device="cuda")
+    labels = torch.from_numpy(rng.integers(1, vocab, (B_TRAIN, TRAIN_U))
+                              .astype(np.int32)).cuda()
+    lab_lens = torch.full((B_TRAIN,), TRAIN_U, dtype=torch.int32,
+                          device="cuda")
+    return pcm, pcm_lens, labels, lab_lens
+
+
 def phase_train_bf16(card, report):
     """Phase 9: the flagship train step at bench.py's shape."""
     from torch.profiler import ProfilerActivity, profile
@@ -908,17 +938,7 @@ def phase_train_bf16(card, report):
     ts = TrainStep.from_config(TRAIN_CFG, device="cuda", seed=SEED)
     enc_cfg = ts.model.encoder.config
     assert enc_cfg.dtype == "bfloat16" and enc_cfg.dropout > 0
-    vocab = ts.model.joiner.config.output_dim
-    rng = np.random.default_rng(SEED)
-    N = TRAIN_SECS * SR
-    pcm = torch.from_numpy((0.1 * rng.standard_normal((B_TRAIN, N)))
-                           .astype(np.float32)).cuda()
-    pcm_lens = torch.full((B_TRAIN,), N, dtype=torch.int32, device="cuda")
-    labels = torch.from_numpy(rng.integers(1, vocab, (B_TRAIN, TRAIN_U))
-                              .astype(np.int32)).cuda()
-    lab_lens = torch.full((B_TRAIN,), TRAIN_U, dtype=torch.int32,
-                          device="cuda")
-    batch = (pcm, pcm_lens, labels, lab_lens)
+    batch = bench_batch(ts.model.joiner.config.output_dim)
     t0 = time.perf_counter()
     warm = ts.step(*batch)
     torch.cuda.synchronize()
@@ -1984,6 +2004,28 @@ def checked_calls(calls, label, fbank_calls):
     return n, worst_log, worst_energy
 
 
+def recipe_argv(cfg, export_path, tmp, corpus, *overrides):
+    """build_task's argv for the training YAML `cfg` on phase 10's corpus
+    (written under `tmp`), exported to `export_path`."""
+    argv = ["--training_config", cfg,
+            "--override", f"task.export_path={export_path}",
+            "--override", f"dataset.base_dir={tmp}/corpus"]
+    for key, path in corpus.items():
+        argv += ["--override", f"dataset.{key}={path}"]
+    for ov in overrides:
+        argv += ["--override", ov]
+    return argv
+
+
+def recipe_infer_argv(cfg, export_path, train_cfg, corpus):
+    """inference's argv for the inference YAML `cfg` on the run whose
+    resolved training config is `train_cfg`, over phase 10's eval set."""
+    return ["--inference_config", cfg,
+            "--override", f"task.train_config={train_cfg}",
+            "--override", f"task.export_path={export_path}",
+            "--override", f"testset.test_data={corpus['eval_data']}"]
+
+
 def conformer_train_run(card, name, cfg, argv, steps, val_every, keys):
     """build_task's main on `cfg` for `steps` steps (an evaluation and a
     checkpoint every `val_every`), every B2 call held to the plain
@@ -2229,8 +2271,6 @@ def phase_conformer_step(card, out):
     from torch.profiler import ProfilerActivity, profile
 
     from speech2text_torch.models.conformer import Conformer
-    from speech2text_torch.ops import attn_weights as aw
-    from speech2text_torch.ops import fbank as fb
     from speech2text_torch.train.step import TrainStep
     from speech2text_torch.config import load_config
     ts = TrainStep.from_config(CONF_CFG, device="cuda", seed=SEED + 31)
@@ -2262,34 +2302,11 @@ def phase_conformer_step(card, out):
     assert not torch.equal(a, b) and torch.equal(e1, e2), \
         "dropout is not on in training only"
 
-    t0 = time.perf_counter()
-    warm = ts.step(*batch)
-    torch.cuda.synchronize()
-    log(f"conformer train warm-up step: {time.perf_counter() - t0:.2f} s, "
-        f"losses { {k: round(float(v), 4) for k, v in warm.items()} }")
-    params = dict(model.named_parameters())
-    before = {k: p.detach().clone() for k, p in params.items()}
-    torch.cuda.reset_peak_memory_stats()
-    aw.KERNEL.launches = fb.KERNEL.launches = 0
-    per_step, times, losses = [], [], []
-    for _ in range(TRAIN_STEPS):
-        a0, f0 = aw.KERNEL.launches, fb.KERNEL.launches
-        t0 = time.perf_counter()
-        res = ts.step(*batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append((aw.KERNEL.launches - a0, fb.KERNEL.launches - f0))
-        losses.append({k: float(v) for k, v in res.items()})
-    launches = {"attn_weights": aw.KERNEL.launches,
-                "fbank": fb.KERNEL.launches}
-    peak = torch.cuda.max_memory_allocated()
-    assert all(r == (0, 1) for r in per_step), \
-        f"launches per step (attn_weights, fbank): {per_step}, expected " \
-        f"(0, 1): TrainStep featurizes the speech batch alone"
-    assert all("ctc_loss" in r and all(math.isfinite(v) for v in r.values())
-               for r in losses), f"non-finite losses {losses}"
-    unchanged = [k for k, p in params.items() if torch.equal(before[k], p)]
-    assert not unchanged, f"parameters not changed: {unchanged}"
+    # (0, 1) launches per step: TrainStep featurizes the speech batch alone
+    launches, times, losses, peak, n_par = timed_train_steps(
+        ts, batch, (0, 1), "conformer train step", card)
+    assert all("ctc_loss" in r for r in losses), losses
+    per_step = [(0, 1)] * TRAIN_STEPS
     med = statistics.median(times)
     log(f"conformer train step ({enc.input_dim} x {enc.num_layers}, ffn "
         f"{enc.ffn_dim}, {enc.num_heads} heads, f32, Projector + CTC branch) "
@@ -2298,7 +2315,7 @@ def phase_conformer_step(card, out):
         f"{B_TRAIN / med * 1e3:.2f} utt/s, peak memory {peak / 2**30:.2f} "
         f"GiB, launches per step {per_step[0]}, ctc_loss "
         f"{[round(r['ctc_loss'], 4) for r in losses]}, loss "
-        f"{[round(r['loss'], 4) for r in losses]}; all {len(params)} "
+        f"{[round(r['loss'], 4) for r in losses]}; all {n_par} "
         f"parameter tensors changed (decoder head included)", card)
 
     parts = conformer_step_parts(ts, batch, card)
@@ -2325,7 +2342,7 @@ def phase_conformer_step(card, out):
         "ctc_share": parts["ctc_fwd_bwd"] / med, "profiled_wall_ms": wall,
         "device_busy_ms": busy, "span_host_ms": spans,
         "top_device_ops": rows[:30]}
-    del ts, model, params, before
+    del ts, model
     torch.cuda.empty_cache()
     return launches
 
@@ -2351,21 +2368,12 @@ def phase_conformer(card, report, tmp, trained):
     corpus = trained["corpus"]
 
     def train_argv(cfg, name, *extra):
-        argv = ["--training_config", cfg,
-                "--override", f"task.export_path={tmp}/conformer",
-                "--override", f"dataset.base_dir={tmp}/corpus",
-                "--override", f"trainer.log_interval={CONF_LOG_EVERY}"]
-        for key, path in corpus.items():
-            argv += ["--override", f"dataset.{key}={path}"]
-        for ov in extra:
-            argv += ["--override", ov]
-        return argv
+        return recipe_argv(cfg, f"{tmp}/conformer", tmp, corpus,
+                           f"trainer.log_interval={CONF_LOG_EVERY}", *extra)
 
     def infer_argv(cfg, name, train_cfg):
-        return ["--inference_config", cfg,
-                "--override", f"task.train_config={train_cfg}",
-                "--override", f"task.export_path={tmp}/conformer_infer/{name}",
-                "--override", f"testset.test_data={corpus['eval_data']}"]
+        return recipe_infer_argv(cfg, f"{tmp}/conformer_infer/{name}",
+                                 train_cfg, corpus)
 
     # (a) CTC training: 20 steps, an evaluation every 10, top-k by wer
     argv = train_argv(CTC_CFG, "ctc",
@@ -2551,6 +2559,464 @@ def phase_conformer(card, report, tmp, trained):
             for kernel in ("attn_weights", "fbank")}
 
 
+# ------------------------------------------------------------ phase 14
+def unchanged_params(model, config, seed):
+    """Names of `model`'s parameters equal to a fresh model of the
+    training config `config` seeded with `seed` (the Trainer's init): the
+    ones training did not move."""
+    fresh = type(model).from_config(config)
+    fresh.init_weights(torch.Generator().manual_seed(seed))
+    live = dict(model.named_parameters())
+    return [k for k, v in fresh.named_parameters()
+            if v.requires_grad and torch.equal(v, live[k].cpu())]
+
+
+def dynamics_profile(step_fn, card, label):
+    """One profiled call of `step_fn` (a training step): wall ms, device
+    busy ms, device ops and the host ms of the step's spans, the training
+    dynamics' extra backward ("regularizers_backward") among them."""
+    from torch.profiler import ProfilerActivity, profile
+    names = SPANS + ("regularizers_backward",)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    assert all(math.isfinite(float(v)) for v in out.values()), out
+    rows, busy, spans = profile_summary(prof, names)
+    n_reg = sum(1 for e in prof.events()
+                if e.name == "regularizers_backward")
+    assert n_reg > 0, f"{label}: no regularizers_backward span in the trace"
+    log(f"profiled {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {sum(r[2] for r in rows)} device ops;"
+        f" host time of its spans: " + ", ".join(
+            f"{k} {spans.get(k, float('nan')):.2f} ms" for k in names)
+        + f" ({n_reg} regularizer backwards)", card)
+    return {"wall_ms": wall, "device_busy_ms": busy, "span_host_ms": spans,
+            "regularizer_backwards": n_reg, "top_device_ops": rows[:30]}
+
+
+def phase_heldout_run(card, out, tmp, corpus, flagship_ms):
+    """Phase 14 (a): zipformer_heldout.yaml (flagship width, bf16,
+    dynamics: true, seperate_lr, max_rss_gb) through build_task's main."""
+    from speech2text_torch import build_task
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.optim.setup import MultiOptimizer
+    argv = recipe_argv(HELDOUT_CFG, f"{tmp}/heldout", tmp, corpus,
+                       f"trainer.val_check_interval={HELDOUT_STEPS}",
+                       f"trainer.log_interval={HELDOUT_LOG_EVERY}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    trainer = build_task.main(argv + ["--max_steps", str(HELDOUT_STEPS)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    task = trainer.task
+    enc = task.model.encoder.config
+    n_layers = sum(enc.num_encoder_layers)
+    assert n_layers == RUN_LAYERS and enc.dynamics and \
+        enc.dtype == "bfloat16" and max(enc.encoder_dim) == 256, enc
+    assert trainer.max_rss_gb == 100.0 and trainer.rss_restart
+    assert isinstance(trainer.optimizer, MultiOptimizer) and sorted(
+        trainer.optimizer.optimizers) == ["default", "joiner", "predictor"]
+    assert len(task.tokenizer) == task.model.joiner.config.output_dim
+    with open(os.path.join(trainer.workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines] == list(
+        range(HELDOUT_LOG_EVERY, HELDOUT_STEPS + 1, HELDOUT_LOG_EVERY))
+    bad = [r for r in lines if not _finite_record(r, RUN_KEYS)]
+    assert not bad, f"heldout: metrics lines not finite: {bad}"
+    evals = [h for h in trainer.history if h["eval_s"] > 0]
+    assert [h["step"] for h in evals] == [HELDOUT_STEPS], evals
+    index = trainer.ckpt._index["checkpoints"]
+    assert _finite_record(index[str(HELDOUT_STEPS)],
+                          ("val_loss", "val_simple_loss", "val_pruned_loss",
+                           "wer")), index
+    eval_batches = task.make_eval_pipeline().batches_per_epoch()
+    n_eval = len(evals) * eval_batches
+    want = {"attn_weights": n_layers * (HELDOUT_STEPS + n_eval),
+            "fbank": 2 * HELDOUT_STEPS + n_eval}
+    assert launches == want, f"heldout launches {launches}, expected {want}"
+    still = unchanged_params(task.model, trainer.config, trainer.seed)
+    assert not still, f"heldout: parameters not changed: {still}"
+    hist = trainer.history
+    step_ms = [1e3 * (b["end"] - a["end"]) for a, b in zip(hist, hist[1:])
+               if a["eval_s"] == 0.0]
+    med = statistics.median(step_ms)
+    specs = task.make_train_pipeline().specs
+    buckets = [(s.batch_size, s.pcm_len, s.label_len) for s in specs]
+    log(f"heldout run (build_task main, zipformer_heldout.yaml: flagship "
+        f"bf16 with dynamics, seperate_lr, {HELDOUT_STEPS} steps): "
+        f"{run_s:.1f} s; median {med:.2f} ms/step over {len(step_ms)} steps "
+        f"({min(step_ms):.2f}-{max(step_ms):.2f}; phase 10's flagship run "
+        f"without dynamics {flagship_ms:.2f}, other buckets); buckets "
+        f"{buckets}; loop's utt/s "
+        f"{[round(r['utts_per_sec'], 2) for r in lines]}; losses "
+        f"{[round(r['loss'], 3) for r in lines]}; eval "
+        f"{ {k: round(v, 4) for k, v in index[str(HELDOUT_STEPS)].items()} }"
+        f" in {evals[0]['eval_s']:.2f} s over {eval_batches} batches; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches} (= {n_layers} "
+        f"B1 and 2 B2 per step, {n_layers} + 1 per eval batch); all "
+        f"{sum(p.requires_grad for p in task.model.parameters())} trained "
+        f"parameter tensors changed",
+        card)
+
+    pipe = task.make_train_pipeline(seed=trainer.seed, pin_memory=True)
+    it = iter(pipe)
+    batch = trainer.to_device(next(it))
+    it.close()
+    step = HELDOUT_STEPS
+    trainer.train_step(batch, step)
+    torch.cuda.synchronize()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    prof = dynamics_profile(lambda: trainer.train_step(batch, step + 1),
+                            card, f"heldout run step (B="
+                            f"{batch['pcm'].shape[0]}, N="
+                            f"{batch['pcm'].shape[1]})")
+    per_step = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    assert per_step == {"attn_weights": n_layers, "fbank": 2}, per_step
+    shape_checks = check_run_shapes(trainer, card)
+    worst = {"attn_weights": max(r["attn_max_abs_err"] for r in shape_checks),
+             "fbank": max(max(r["fbank_speech_log_err"],
+                              r["fbank_noise_log_err"])
+                          for r in shape_checks)}
+    out["heldout_run"] = {
+        "steps": HELDOUT_STEPS, "run_s": run_s, "ms_per_step": step_ms,
+        "median_ms": med, "flagship_run_median_ms": flagship_ms,
+        "buckets": buckets, "metrics_lines": lines,
+        "eval_s": [h["eval_s"] for h in evals],
+        "eval_batches": eval_batches, "evals": index,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": per_step, "profiled_step": prof,
+        "kernel_checks": shape_checks, "max_abs_err": worst}
+    del trainer, task
+    torch.cuda.empty_cache()
+    return launches, per_step, worst, len(shape_checks)
+
+
+def timed_train_steps(ts, batch, per_step_want, label, card):
+    """A warm-up and TRAIN_STEPS timed TrainStep steps on `batch` with the
+    kernel counts set to 0 before them: (launches, ms per step, losses,
+    peak memory); launches per step must be `per_step_want` (B1, B2),
+    every loss finite and every parameter changed."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    t0 = time.perf_counter()
+    ts.step(*batch)
+    torch.cuda.synchronize()
+    log(f"{label} warm-up step: {time.perf_counter() - t0:.2f} s")
+    params = {k: p for k, p in ts.model.named_parameters() if p.requires_grad}
+    before = {k: p.detach().clone() for k, p in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    per_step, times, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        a0, f0 = aw.KERNEL.launches, fb.KERNEL.launches
+        t0 = time.perf_counter()
+        res = ts.step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((aw.KERNEL.launches - a0, fb.KERNEL.launches - f0))
+        losses.append({k: float(v) for k, v in res.items()})
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(r == per_step_want for r in per_step), \
+        f"{label}: launches per step {per_step}, expected {per_step_want}"
+    assert all(math.isfinite(v) for r in losses for v in r.values()), \
+        f"{label}: non-finite losses {losses}"
+    unchanged = [k for k, p in params.items() if torch.equal(before[k], p)]
+    assert not unchanged, f"{label}: parameters not changed: {unchanged}"
+    del before
+    return launches, times, losses, peak, len(params)
+
+
+def phase_heldout_step(card, out, flagship_ms):
+    """Phase 14 (b): the heldout model's TrainStep at bench.py's shape
+    (bf16, dynamics at global steps 0-5), beside phase 9's flagship step
+    on the same batch."""
+    from speech2text_torch.train.step import TrainStep
+    ts = TrainStep.from_config(HELDOUT_CFG, device="cuda", seed=SEED)
+    enc = ts.model.encoder.config
+    assert enc.dynamics and enc.dtype == "bfloat16"
+    batch = bench_batch(ts.model.joiner.config.output_dim)
+    n_layers = sum(enc.num_encoder_layers)
+    launches, times, losses, peak, n_par = timed_train_steps(
+        ts, batch, (n_layers, 1), "heldout train step", card)
+    med = statistics.median(times)
+    log(f"heldout train step (dynamics, bf16) B={B_TRAIN} x {TRAIN_SECS} s "
+        f"U={TRAIN_U}: median {med:.2f} ms/step "
+        f"({', '.join(f'{x:.2f}' for x in times)}), "
+        f"{B_TRAIN / med * 1e3:.2f} utt/s; phase 9's flagship step without "
+        f"dynamics {flagship_ms:.2f} ms (ratio {med / flagship_ms:.3f}); "
+        f"peak memory {peak / 2**30:.2f} GiB; launches per step "
+        f"({n_layers}, 1); losses {[round(r['loss'], 4) for r in losses]}; "
+        f"all {n_par} parameter tensors changed", card)
+    batch_args = batch
+    prof = dynamics_profile(lambda: ts.step(*batch_args), card,
+                            f"heldout train step B={B_TRAIN}")
+    out["heldout_step"] = {
+        "B": B_TRAIN, "seconds": TRAIN_SECS, "U": TRAIN_U,
+        "ms_per_step": times, "median_ms": med,
+        "flagship_step_median_ms": flagship_ms,
+        "utt_per_s": B_TRAIN / med * 1e3, "peak_memory_bytes": peak,
+        "losses": losses, "profiled_step": prof}
+    del ts
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rnnt_step_parts(ts, batch, card):
+    """Wall time of the full-lattice RNN-T step's parts, each ended by a
+    synchronise: featurize; the encoder; the LSTM predictor and the full
+    joiner; the RNN-T loss's forward; the backward of the loss; the
+    clipping and AdamW. Medians of 3."""
+    from speech2text_torch.optim import clip_by_global_norm_
+    pcm, pcm_lens, labels, lab_lens = batch
+    model, fn = ts.model, ts.loss_fn
+    sync = torch.cuda.synchronize
+    names = ("featurize", "encoder", "predictor_joiner", "rnnt_loss_forward",
+             "backward", "optimizer")
+    times = {k: [] for k in names}
+    for _ in range(3):
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        feats, feat_lens = ts.featurize(pcm, pcm_lens)
+        sync()
+        marks.append(time.perf_counter())
+        enc, enc_lens = model.encoder(feats, feat_lens, training=True,
+                                      generator=ts.generator)
+        sync()
+        marks.append(time.perf_counter())
+        logits, _, _ = model.joiner(enc, enc_lens, model.predictor(labels),
+                                    lab_lens, labels)
+        sync()
+        marks.append(time.perf_counter())
+        loss = fn({"logits": logits, "enc_lens": enc_lens}, labels,
+                  lab_lens)["loss"]
+        sync()
+        marks.append(time.perf_counter())
+        ts.optimizer.zero_grad()
+        loss.backward()
+        sync()
+        marks.append(time.perf_counter())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, ts.clip,
+                             torch.nn.utils.get_total_norm(grads))
+        ts.optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(names, marks, marks[1:]):
+            times[k].append(b - a)
+        shape = tuple(logits.shape)
+        del enc, logits, loss
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log(f"rnnt train step parts at logits {shape} (median ms, "
+        f"synchronised): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      med.items()), card)
+    return med, shape
+
+
+def phase_rnnt_step(card, out):
+    """Phase 14 (c, second part): conformer_rnnt.yaml at its width (256 x
+    12, LSTM predictor 512 x 2, the full joiner) through TrainStep at
+    bench.py's shape, f32 with TF32 off."""
+    from speech2text_torch.models.predictor import LstmPredictor
+    from speech2text_torch.train.step import TrainStep
+    assert not torch.backends.cuda.matmul.allow_tf32 and \
+        not torch.backends.cudnn.allow_tf32
+    ts = TrainStep.from_config(RNNT_CFG, device="cuda", seed=SEED + 41)
+    model = ts.model
+    assert isinstance(model.predictor, LstmPredictor) and \
+        model.joiner.config.prune_range == -1 and ts.clip == 5.0 and \
+        model.encoder.config.dtype == "float32"
+    rng = np.random.default_rng(SEED + 41)
+    pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
+                                            TRAIN_U, 128)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (pcm, lens, labels, lab_lens))
+    launches, times, losses, peak, n_par = timed_train_steps(
+        ts, batch, (0, 1), "rnnt train step", card)
+    med = statistics.median(times)
+    log(f"rnnt train step (conformer_rnnt.yaml: 256 x 12, LSTM 512 x 2, "
+        f"full lattice, f32) B={B_TRAIN} x 2-{TRAIN_SECS} s U<={TRAIN_U}: "
+        f"median {med:.2f} ms/step ({', '.join(f'{x:.2f}' for x in times)})"
+        f", {B_TRAIN / med * 1e3:.2f} utt/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches per step (0, 1), losses "
+        f"{[round(r['loss'], 4) for r in losses]}; all {n_par} parameter "
+        f"tensors changed", card)
+    parts, shape = rnnt_step_parts(ts, batch, card)
+    torch.cuda.reset_peak_memory_stats()
+    from torch.profiler import ProfilerActivity, profile
+    names = SPANS + ("rnnt_loss",)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows, busy, spans = profile_summary(prof, names)
+    log(f"profiled rnnt train step: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(r[2] for r in rows)} device ops; host time of its spans: "
+        + ", ".join(f"{k} {spans.get(k, float('nan')):.2f} ms"
+                    for k in names), card)
+    for key, ms, n in rows[:8]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
+    out["rnnt_step"] = {
+        "B": B_TRAIN, "seconds": TRAIN_SECS, "U": TRAIN_U,
+        "logits_shape": shape, "ms_per_step": times, "median_ms": med,
+        "utt_per_s": B_TRAIN / med * 1e3, "peak_memory_bytes": peak,
+        "losses": losses, "parts_ms": parts,
+        "rnnt_loss_share": parts["rnnt_loss_forward"] / med,
+        "profiled_wall_ms": wall, "device_busy_ms": busy,
+        "span_host_ms": spans, "top_device_ops": rows[:30]}
+    del ts, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rnnt_family(card, report, tmp, trained):
+    """Phase 14: the remaining transducer recipes on phase 10's corpus:
+    (a) zipformer_heldout.yaml through build_task with every B1 and B2
+    call of an epoch held to the plain versions; (b) its TrainStep at
+    bench.py's shape beside phase 9's; (c) conformer_rnnt.yaml and
+    conformer_hybrid_rnnt.yaml through build_task, conformer_rnnt.yaml's
+    TrainStep at bench.py's shape with its parts; (d) the three inference
+    YAMLs on (c)'s checkpoints, f32 tokens on seeded weights equal on the
+    card and the CPU."""
+    from speech2text_torch.decoding import build_decoding
+    from speech2text_torch.tasks.rnnt import (CtcHybridRnntTask, RnntModel,
+                                              RnntTask)
+    t_phase = time.perf_counter()
+    out = {}
+    corpus = trained["corpus"]
+    run_launches, run_per_step, run_worst, n_shapes = phase_heldout_run(
+        card, out, tmp, corpus, report["train_run"]["median_ms"])
+    step_launches = {"heldout_step": phase_heldout_step(
+        card, out, report["train_bf16"]["median_ms"])}
+
+    # (c) the Conformer RNN-T and hybrid recipes through build_task
+    train_cfgs, fam_runs = {}, {}
+    for name, cfg, cls, keys in (
+            ("rnnt", RNNT_CFG, RnntTask, CTC_KEYS),
+            ("hybrid", HYBRID_CFG, CtcHybridRnntTask,
+             CTC_KEYS + ("rnnt_loss", "ctc_loss"))):
+        argv = recipe_argv(cfg, f"{tmp}/rnnt_family", tmp, corpus,
+                           f"trainer.log_interval={CONF_LOG_EVERY}",
+                           f"trainer.val_check_interval={RNNT_STEPS}")
+        trainer, rec = conformer_train_run(card, name, cfg, argv, RNNT_STEPS,
+                                           RNNT_STEPS, keys)
+        assert type(trainer.task) is cls and trainer.clip == 5.0
+        want = {"val_loss", "wer"} | ({"val_rnnt_loss", "val_ctc_loss"}
+                                      if name == "hybrid" else set())
+        assert all(set(m) == want for m in rec["evals"].values()), \
+            rec["evals"]
+        fam_runs[name] = rec
+        train_cfgs[name] = os.path.join(trainer.workdir,
+                                        os.path.basename(cfg))
+        del trainer
+    step_launches["rnnt_step"] = phase_rnnt_step(card, out)
+    out["build_task"] = fam_runs
+
+    # (d) the three inference YAMLs on (c)'s checkpoints
+    per_batch, infer_fbank, infer_batches, infer_worst = {}, 0, 0, 0.0
+    decode = {}
+    for name, (cfg, kind) in RNNT_INFER.items():
+        run, err = conformer_inference(
+            card, name, recipe_infer_argv(cfg, f"{tmp}/rnnt_infer/{name}",
+                                          train_cfgs[kind], corpus))
+        infer_worst = max(infer_worst, err)
+        infer_fbank += run["launches"]["fbank"]
+        infer_batches += run["batches"]
+        per_batch[name] = {k: n / run["batches"]
+                           for k, n in run["launches"].items()}
+        task, dev = run["task"], run["device"]
+        batches = device_batches(task, dev)
+        parts, tokens = infer_parts(task, batches)
+        per = {k: statistics.mean(v) for k, v in parts.items()}
+        seeded = RnntModel.from_config(run["train_config"])
+        seeded.init_weights(torch.Generator().manual_seed(SEED + 42))
+        task.model.load_state_dict(seeded.state_dict())
+        cpu_model = seeded.eval()
+        cpu_dec = build_decoding(run["train_config"]["metric"],
+                                 cpu_model.predictor_step,
+                                 cpu_model.predictor.init_state,
+                                 cpu_model.joiner_step)
+
+        def rnnt_on(model, dec, feats, lens):
+            enc, enc_lens = model.encoder(feats, lens)
+            return dec.decode(enc, enc_lens)
+
+        n_tok = same_tokens_card_cpu(
+            lambda f, l: rnnt_on(task.model, task.decode_session, f, l),
+            lambda f, l: rnnt_on(cpu_model, cpu_dec, f, l), task.featurize,
+            batches, name)
+        log(f"{name}: s per test batch (mean of {len(batches)}): featurize "
+            f"{per['featurize']:.4f}, encode {per['encode']:.4f}, decode "
+            f"{per['decode']:.4f} ({tokens} tokens of (c)'s weights); f32 "
+            f"tokens on seeded weights identical on the card and the CPU "
+            f"over {CONF_CPU_BATCHES} test batches: {n_tok} tokens compared",
+            card)
+        decode[name] = {"s_per_batch": per, "tokens": tokens,
+                        "wer": run["wer"], "wall_s": run["wall_s"],
+                        "launches": run["launches"],
+                        "batches": run["batches"], "card_cpu_tokens": n_tok}
+        del run, task, seeded, cpu_model, cpu_dec
+        torch.cuda.empty_cache()
+    out["decode"] = decode
+
+    runs = list(fam_runs.values())
+    b1_total = run_launches["attn_weights"] + sum(
+        r["launches"]["attn_weights"] for r in runs) + sum(
+        s["attn_weights"] for s in step_launches.values())
+    fbank_total = run_launches["fbank"] + sum(
+        r["launches"]["fbank"] for r in runs) + sum(
+        s["fbank"] for s in step_launches.values()) + infer_fbank
+    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank
+    wall = time.perf_counter() - t_phase
+    log(f"rnnt family phase: {wall:.1f} s; launches B1 {b1_total} (the "
+        f"heldout runs: {RUN_LAYERS} per step and per eval batch; 0 in the "
+        f"Conformer recipes), B2 {fbank_total}; {n_shapes} heldout batch "
+        f"shapes with every B1 and B2 call against the plain versions "
+        f"(worst B1 {run_worst['attn_weights']:.3g}, B2 log "
+        f"{run_worst['fbank']:.3g}); {checked} B2 calls of the Conformer "
+        f"runs within check_mel (worst log error {infer_worst:.3g} in "
+        f"inference)", card)
+    out["wall_s"] = wall
+    report["rnnt_family"] = out
+
+    def per_step(kernel):
+        """Launches per training step of each run, measured."""
+        got = {"heldout_build_task": run_per_step[kernel]}
+        for name, r in fam_runs.items():
+            got[f"{name}_build_task"] = (
+                r["launches"][kernel] - (kernel == "fbank")
+                * len(r["eval_s"]) * r["eval_batches"]) / RNNT_STEPS
+        for name, s in step_launches.items():
+            got[name] = s[kernel] / TRAIN_STEPS
+        return got
+
+    worst_b2 = max([run_worst["fbank"], infer_worst]
+                   + [r["fbank_max_abs_err"] for r in runs])
+    return {kernel: dict(
+        launches=b1_total if kernel == "attn_weights" else fbank_total,
+        launches_per_step=per_step(kernel),
+        launches_per_batch={k: v[kernel] for k, v in per_batch.items()},
+        max_abs_err=run_worst["attn_weights"] if kernel == "attn_weights"
+        else worst_b2,
+        **({} if kernel == "attn_weights" else dict(calls_checked=checked)))
+        for kernel in ("attn_weights", "fbank")}
+
+
 # ------------------------------------------------------------ compare
 def load_earlier(pkg_dir):
     """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
@@ -2687,6 +3153,7 @@ def main(argv):
             card, report, tmp, run)
         stream = phase_stream(card, report, run)
         conformer = phase_conformer(card, report, tmp, run)
+        family = phase_rnnt_family(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -2711,7 +3178,8 @@ def main(argv):
                         launches_per_batch=infer_per_batch["attn_weights"],
                         max_abs_err=infer_err["attn_weights"]),
              stream=stream["attn_weights"],
-             conformer=conformer["attn_weights"]),
+             conformer=conformer["attn_weights"],
+             rnnt_family=family["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -2725,10 +3193,11 @@ def main(argv):
              infer=dict(launches=infer_launches["fbank"],
                         launches_per_batch=infer_per_batch["fbank"],
                         max_abs_err=infer_err["fbank"]),
-             stream=stream["fbank"], conformer=conformer["fbank"]),
+             stream=stream["fbank"], conformer=conformer["fbank"],
+             rnnt_family=family["fbank"]),
     ]
     for k in kernels:
-        paths = ("train_run", "infer") + (
+        paths = ("train_run", "infer", "rnnt_family") + (
             ("stream", "conformer") if k["name"] == "fbank" else ())
         for path in paths:
             assert k[path]["launches"] > 0, \

@@ -4,14 +4,15 @@
       --training_config=configs/training/zipformer_stateless_pruned_rnnt.yaml \\
       [--override a.b.c=value ...] [--max_steps N] [--device cpu]
 
-YAML → the task of `task.type` (`Pruned_Rnnt`: tasks/rnnt.py:
-PrunedRnntTask; `CTC`: tasks/ctc.py:CtcTask; the other types raise
-NotImplementedError) → Trainer.fit, in `<task.export_path>/<task.name>`:
+YAML → the task of `task.type` (`Pruned_Rnnt`, `Rnnt`,
+`CTC_Hybrid_Rnnt`: tasks/rnnt.py; `CTC`: tasks/ctc.py:CtcTask; the other
+types raise NotImplementedError) → Trainer.fit, in `<task.export_path>/<task.name>`:
 seeds, `run.log`, the subword model trained from the train manifest
 (tools/spm_train.py), a backup of the resolved config (written with
 config.dumps, read back by config.load_config), finetuning from a port
 checkpoint file or an averaged top-k directory (`finetune.base_model`),
-and resume from the run's latest checkpoint or from `resume`.
+and resume from the run's latest checkpoint or from `resume` (also
+after the host-RSS watchdog's exec-restart, `trainer.max_rss_gb`).
 
 Runs on `cuda` unless `--device cpu` or the YAML's `trainer.platform:
 cpu` asks for the CPU; with no CUDA device and no such request it raises

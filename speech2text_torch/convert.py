@@ -138,13 +138,17 @@ def flax_to_state_dict(params: Dict[str, Any],
 
 def to_flax(model: nn.Module) -> Dict[str, Any]:
     """The inverse: `model`'s parameters as a flax tree of f32 numpy
-    arrays, in the layout `flax_to_state_dict` reads."""
+    arrays, in the layout `flax_to_state_dict` reads (an `nn.LSTM` as
+    flax's `rnns_{i}/cell` OptimizedLSTMCell leaves)."""
     tree: Dict[str, Any] = {}
     kinds = {name: type(m).__name__ for name, m in model.named_modules()}
     for key, value in model.state_dict().items():
         parts = key.split(".")
         owner, last = ".".join(parts[:-1]), parts[-1]
         leaf = value.detach().cpu().float().numpy()
+        if kinds.get(owner) == "LSTM":
+            _lstm_to_flax(tree, parts, leaf)
+            continue
         if last == "weight" and kinds.get(owner) == "Embed":
             last = "embedding"
         elif last == "weight" and kinds.get(owner) == "LayerNorm":
@@ -165,3 +169,27 @@ def to_flax(model: nn.Module) -> Dict[str, Any]:
             node = node.setdefault(name, {})
         node[last] = np.array(leaf, dtype=np.float32)
     return tree
+
+
+def _lstm_to_flax(tree: Dict[str, Any], parts, leaf: np.ndarray) -> None:
+    """One nn.LSTM entry (`<owner>.rnns.weight_ih_l{i}`, ...) → its flax
+    `rnns_{i}/cell` leaves; `bias_ih_l{i}` must be zero (flax's input
+    kernels have no bias)."""
+    kind, layer = parts[-1].rsplit("_l", 1)
+    node = tree
+    for name in parts[:-2]:
+        node = node.setdefault(name, {})
+    cell = node.setdefault(f"rnns_{layer}", {}).setdefault("cell", {})
+    gates = np.split(leaf, 4, axis=0)
+    if kind == "bias_ih":
+        if np.any(leaf):
+            raise ValueError(f"{'.'.join(parts)} is not zero: flax's LSTM "
+                             f"input kernels have no bias")
+        return
+    for g, part in zip(_GATES, gates):
+        if kind == "bias_hh":
+            cell.setdefault(f"h{g}", {})["bias"] = np.array(part, np.float32)
+        else:
+            s = "i" if kind == "weight_ih" else "h"
+            cell.setdefault(f"{s}{g}", {})["kernel"] = np.array(
+                part.T, np.float32)

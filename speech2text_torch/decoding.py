@@ -304,9 +304,10 @@ class RnntGreedyDecoding:
                 new_pred, new_state = self._pred_step(tok, state)
                 pred_out = torch.where(emit[:, None, None], new_pred,
                                        pred_out)
-                state = torch.where(
-                    emit.reshape((B,) + (1,) * (state.ndim - 1)), new_state,
-                    state)
+                state = _map_state(
+                    lambda n, o: torch.where(
+                        emit.reshape((B,) + (1,) * (n.ndim - 1)), n, o),
+                    new_state, state)
         return state, pred_out, tokens, counts
 
     @torch.no_grad()

@@ -17,10 +17,11 @@ and the corpus WER, in inference.py's format.
 
 Runs on `cuda` unless `--device cpu` or the YAML's `task.platform: cpu`
 asks for the CPU; with no CUDA device and no such request it raises.
-`pruned_rnnt_inference` and `ctc_inference` are ported (the `decoding`
-section's type and config, such as `beam_size` and `cand_size`, go into
-the training config's `metric`); the other task types, `module_export`
-and `onnx_export` raise NotImplementedError.
+`pruned_rnnt_inference`, `rnnt_inference`, `ctc_hybrid_rnnt_inference`
+(decoded by the transducer, as JAX's) and `ctc_inference` are ported (the
+`decoding` section's type and config, such as `beam_size` and
+`cand_size`, go into the training config's `metric`); `cif_inference`,
+`module_export` and `onnx_export` raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Loss factory (port of speech2text_tpu/losses/__init__.py, the `CTC`
-and `Pruned_Rnnt` keys): `Loss({"model": key, "config": {...}})`.
+"""Loss factory (port of speech2text_tpu/losses/__init__.py, the `CTC`,
+`Rnnt` and `Pruned_Rnnt` keys): `Loss({"model": key, "config": {...}})`.
 
 Each loss is called on a dict of tensors; the CTC loss also has
 `predict(logits)`, the log-softmax its decoders read. The JAX factory's other keys raise
@@ -15,6 +15,7 @@ import torch
 
 from .ops.ctc import ctc_loss
 from .ops.pruned_rnnt import rnnt_loss_pruned
+from .ops.rnnt import rnnt_loss
 
 # the keys of the JAX package's factory
 KNOWN = ("CTC", "Rnnt", "Pruned_Rnnt", "MaskedCELoss", "MaskedKLDiv",
@@ -46,6 +47,28 @@ class CtcLoss:
 
 
 @dataclasses.dataclass
+class RnntLossConfig:
+    blank_label: int = 0
+    reduction: str = "mean"
+    clamp: float = -1.0     # clip per-utterance logits-gradients; < 0 off
+
+
+class RnntLoss:
+    """The full-lattice transducer loss on the joiner's (B, T, U+1, V)
+    logits, in f32, with torchaudio's `clamp`."""
+
+    def __init__(self, config: RnntLossConfig):
+        self.config = config
+
+    def __call__(self, batch: Dict[str, Any]) -> torch.Tensor:
+        return rnnt_loss(batch["logits"], batch["label"],
+                         batch["logits_length"], batch["label_length"],
+                         blank=self.config.blank_label,
+                         reduction=self.config.reduction,
+                         clamp=self.config.clamp)
+
+
+@dataclasses.dataclass
 class PrunedRnntLossConfig:
     termination_symbol: int = 0
     reduction: str = "mean"
@@ -66,6 +89,7 @@ class PrunedRnntLoss:
 
 
 _PORTED = {"CTC": (CtcLoss, CtcLossConfig),
+           "Rnnt": (RnntLoss, RnntLossConfig),
            "Pruned_Rnnt": (PrunedRnntLoss, PrunedRnntLossConfig)}
 
 

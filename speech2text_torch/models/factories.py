@@ -4,9 +4,9 @@ predictor of a training config's `encoder`, `decoder` and `predictor`
 sections ({"model": key, "config": {...}}).
 
 Ported keys: encoders Conformer and Zipformer, decoders Identity and
-Projector, the Stateless predictor. The JAX package's other keys
-(encoders Emformer and Wav2Vec2, the Lstm predictor) raise
-NotImplementedError; an unknown key raises ValueError.
+Projector, the Stateless and Lstm predictors. The JAX package's other
+keys (encoders Emformer and Wav2Vec2) raise NotImplementedError; an
+unknown key raises ValueError.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from ..config import from_dict
 from .conformer import Conformer, ConformerConfig
 from .decoder import (IdentityDecoder, IdentityDecoderConfig,
                       ProjectorDecoder, ProjectorDecoderConfig)
-from .predictor import StatelessPredictor, StatelessPredictorConfig
+from .predictor import (LstmPredictor, LstmPredictorConfig,
+                        StatelessPredictor, StatelessPredictorConfig)
 from .zipformer import Zipformer2, Zipformer2Config
 
 
@@ -51,4 +52,6 @@ def PredictorFactory(config: Dict[str, Any]) -> nn.Module:
     model, cfg = config["model"], config.get("config") or {}
     if model == "Stateless":
         return StatelessPredictor(from_dict(StatelessPredictorConfig, cfg))
-    _unported("predictor", model, ("Lstm",))
+    if model == "Lstm":
+        return LstmPredictor(from_dict(LstmPredictorConfig, cfg))
+    _unported("predictor", model, ())

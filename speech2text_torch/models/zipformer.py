@@ -6,9 +6,15 @@ Covers the serving forward and the training forward with
 In training (`training=True`) the feedforwards drop out after SwooshL and
 each stack's output channels at or above `encoder_unmasked_dim[i]` are
 zeroed for a random share of whole utterances, the masks drawn from the
-`torch.Generator` the caller passes. The training dynamics
-(`dynamics=True`: balancers, whitening, skip schedules) and the
-`scan_layers` layout are not ported.
+`torch.Generator` the caller passes. With `dynamics=True` training also
+runs icefall's training dynamics as the JAX package does: per-sequence
+skips of the attention, convolution and feedforward modules and of the
+layer's bypass, constant attention, bypass scales clamped from below by
+a schedule, and balancers and whitening (ops/regularizers.py) at the
+JAX placements, every rate and limit a `ScheduledFloat` of the global
+`step` (1e9 when none is given), evaluated on the host. Evaluation,
+serving and streaming do not change with it. The `scan_layers` layout is
+not ported.
 
 True streaming of a causal config (`Zipformer2.init_streaming_state`,
 `streaming_prime`, `streaming_step`): the frontend carries 8 raw fbank
@@ -44,6 +50,9 @@ from torch import nn
 
 from ..ops.attn_weights import NEG, zip_weights
 from ..ops.masking import chunk_causal_mask, make_non_pad_mask
+from ..ops.regularizers import (ScheduledFloat, balancer,
+                                limit_param_value, whiten,
+                                whitening_schedule)
 from .layers import Conv, Dense, dropout, dtype_of
 
 
@@ -87,7 +96,9 @@ class BiasNorm(nn.Module):
 
 
 class BypassModule(nn.Module):
-    """y = x + c·(m(x) − x), c per channel clamped to [min_scale, 1]."""
+    """y = x + c·(m(x) − x), c per channel clamped to [min_scale, 1]; in
+    the training dynamics clamped to [scale_min, 1] straight through, and
+    times the per-sequence `skip_mask` (B, 1, 1)."""
 
     def __init__(self, dim: int, min_scale: float = 0.25):
         super().__init__()
@@ -98,9 +109,15 @@ class BypassModule(nn.Module):
         with torch.no_grad():
             self.bypass_scale.fill_(0.5)
 
-    def forward(self, x_orig: torch.Tensor,
-                x_new: torch.Tensor) -> torch.Tensor:
-        c = torch.clamp(self.bypass_scale, self.min_scale, 1.0)
+    def forward(self, x_orig: torch.Tensor, x_new: torch.Tensor,
+                scale_min: Optional[float] = None,
+                skip_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if scale_min is None:
+            c = torch.clamp(self.bypass_scale, self.min_scale, 1.0)
+        else:
+            c = limit_param_value(self.bypass_scale, scale_min, 1.0)
+        if skip_mask is not None:
+            c = c * skip_mask
         return x_orig + c * (x_new - x_orig)
 
 
@@ -438,12 +455,26 @@ class NonlinAttention(nn.Module):
         self.out_proj = Dense(hidden, embed_dim, dtype=dtype,
                               init_scale=0.05 ** 2)
 
-    def forward(self, x: torch.Tensor,
-                attn_weights_1head: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_weights_1head: torch.Tensor,
+                dyn_step: Optional[float] = None) -> torch.Tensor:
+        """`dyn_step`, the global step in the training dynamics: a
+        balancer on the sigmoid branch s, whitening of a and of the
+        output, with their scheduled limits."""
         s, a, b = self.in_proj(x).chunk(3, dim=-1)
+        if dyn_step is not None:
+            s = balancer(
+                s, ScheduledFloat((0.0, 0.25), (20000.0, 0.05))(dyn_step),
+                ScheduledFloat((0.0, 0.75), (20000.0, 0.95))(dyn_step),
+                min_abs=0.5, max_abs=5.0,
+                prob=ScheduledFloat((0.0, 0.5), (8000.0, 0.125))(dyn_step))
+            a = whiten(a, whitening_schedule(5.0)(dyn_step), 0.01, 0.25)
         v = a * torch.tanh(s)
         out = torch.matmul(attn_weights_1head.to(v.dtype), v)
-        return self.out_proj(b * out.to(self.dtype))
+        out = self.out_proj(b * out.to(self.dtype))
+        if dyn_step is not None:
+            out = whiten(out, whitening_schedule(5.0, 3.0)(dyn_step), 0.01,
+                         0.25)
+        return out
 
     def step(self, x_chunk: torch.Tensor, attn_weights_1head: torch.Tensor,
              cached_v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -502,15 +533,63 @@ class ConvolutionModule(nn.Module):
 
 
 # ----------------------------------------------------------------- layer
+NO_STEP = 1e9   # the step of the schedules when none is given (JAX's)
+
+
+def sample_layer_draws(batch_size: int, const_attn: float,
+                       generator: Optional[torch.Generator],
+                       device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """A dynamics layer's seven draws: "keep_u" (6, B, 1, 1) uniforms for
+    the per-sequence keeps of attention, conv1, conv2, ff2, ff3 and the
+    bypass (kept where u ≥ the skip rate), "const" a 0-d bool, constant
+    attention with probability `const_attn`."""
+    keep_u = torch.rand((6, batch_size, 1, 1), generator=generator,
+                        device=device)
+    const = torch.rand((), generator=generator, device=device) < const_attn
+    return {"keep_u": keep_u, "const": const}
+
+
+class LayerDynamics:
+    """The schedules of a layer's training dynamics at `step`
+    (zipformer.py:719-734 of the JAX package), as host floats."""
+
+    def __init__(self, step: float):
+        self.attn_skip = ScheduledFloat((0.0, 0.2), (4000.0, 0.05),
+                                        (16000.0, 0.0))(step)
+        self.conv_skip = self.attn_skip
+        self.const_attn = ScheduledFloat((0.0, 0.25), (4000.0, 0.025))(step)
+        self.ff2_skip = ScheduledFloat((0.0, 0.1), (4000.0, 0.01),
+                                       (50000.0, 0.0))(step)
+        self.ff3_skip = self.ff2_skip
+        self.bypass_skip = ScheduledFloat((0.0, 0.5), (4000.0, 0.02))(step)
+        self.bypass_min = ScheduledFloat((0.0, 0.9), (20000.0, 0.2))(step)
+        self.bal_prob = ScheduledFloat((0.0, 0.5), (8000.0, 0.125))(step)
+        self.na_min_abs = ScheduledFloat((0.0, 0.004), (4000.0, 0.02))(step)
+        self.ff2_min_abs = ScheduledFloat((0.0, 0.0), (4000.0, 0.1))(step)
+        self.ff3_min_abs = ScheduledFloat((0.0, 0.0), (4000.0, 0.2))(step)
+        self.whiten_limit = whitening_schedule(4.0, 3.0)(step)
+
+    def keep_masks(self, draws: Dict[str, torch.Tensor],
+                   dtype: torch.dtype) -> List[torch.Tensor]:
+        """The six (B, 1, 1) keep masks in `dtype`: no 1/(1−p) rescale."""
+        rates = (self.attn_skip, self.conv_skip, self.conv_skip,
+                 self.ff2_skip, self.ff3_skip, self.bypass_skip)
+        return [(u >= r).to(dtype) for u, r in zip(draws["keep_u"], rates)]
+
+
 class Zipformer2EncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, ff_dim: int, num_heads: int,
                  query_head_dim: int, value_head_dim: int,
                  pos_head_dim: int, pos_dim: int, kernel_size: int,
                  causal: bool, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dynamics: bool = False):
         super().__init__()
         D = embed_dim
         self.dtype = dtype
+        self.dynamics = dynamics
+        # the draws of the next dynamics forward in place of sampled ones
+        # (JAX's, in the parity tests); consumed by that forward
+        self.given_draws: Optional[Dict[str, torch.Tensor]] = None
         self.cache_dims = {"key": num_heads * query_head_dim,
                            "nonlin": D * 3 // 4,
                            "val1": num_heads * value_head_dim,
@@ -535,7 +614,12 @@ class Zipformer2EncoderLayer(nn.Module):
                 pad_mask: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                step: Optional[float] = None) -> torch.Tensor:
+        if self.dynamics and training:
+            return self._dynamics_forward(
+                x, pos_emb, pad_mask, attn_mask, generator,
+                NO_STEP if step is None else float(step))
         attn_w = self.attn_weights(x, pos_emb, attn_mask)
         src = x
         x = x + self.ff1(x, training, generator)
@@ -549,6 +633,52 @@ class Zipformer2EncoderLayer(nn.Module):
         x = x + self.ff3(x, training, generator)
         x = self.norm(x)
         return self.bypass(src, x)
+
+    def _dynamics_forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                          pad_mask: torch.Tensor,
+                          attn_mask: Optional[torch.Tensor],
+                          generator: Optional[torch.Generator],
+                          step: float) -> torch.Tensor:
+        """The training forward with the dynamics at `step`
+        (zipformer.py:708-811 of the JAX package)."""
+        dyn = LayerDynamics(step)
+        draws = self.given_draws
+        self.given_draws = None
+        if draws is None:
+            draws = sample_layer_draws(x.shape[0], dyn.const_attn,
+                                       generator, x.device)
+        m_attn, m_conv1, m_conv2, m_ff2, m_ff3, m_bypass = \
+            dyn.keep_masks(draws, x.dtype)
+        attn_w = self.attn_weights(x, pos_emb, attn_mask)
+        na_w = attn_w[:, 0]
+        # constant attention: uniform weights over the allowed keys
+        wc = (na_w > 0).to(na_w.dtype)
+        wc = wc / torch.clamp(wc.sum(-1, keepdim=True), min=1e-9)
+        na_w = torch.where(draws["const"].to(na_w.device), wc, na_w)
+        src = x
+        x = x + self.ff1(x, True, generator)
+        na = self.nonlin_attn(x, na_w, dyn_step=step)
+        na = balancer(na, 0.3, 0.7, min_abs=dyn.na_min_abs, prob=0.05)
+        x = x + na * m_attn
+        x = x + self.self_attn1(x, attn_w) * m_attn
+        x = x + self.conv1(x, pad_mask) * m_conv1
+        f2 = balancer(self.ff2(x, True, generator), 0.3, 0.7,
+                      min_abs=dyn.ff2_min_abs, max_abs=2.0, prob=0.05)
+        x = x + f2 * m_ff2
+        x = self.bypass_mid(src, x, scale_min=dyn.bypass_min)
+        x = x + self.self_attn2(x, attn_w) * m_attn
+        x = x + self.conv2(x, pad_mask) * m_conv2
+        f3 = balancer(self.ff3(x, True, generator), 0.3, 0.7,
+                      min_abs=dyn.ff3_min_abs, max_abs=4.0, prob=0.05)
+        x = x + f3 * m_ff3
+        x = balancer(x, 0.45, 0.55, min_abs=0.2, max_abs=4.0,
+                     prob=dyn.bal_prob)
+        x = self.norm(x)
+        x = self.bypass(src, x, scale_min=dyn.bypass_min,
+                        skip_mask=m_bypass)
+        x = balancer(x, 0.45, 0.55, min_abs=0.1, max_abs=4.0,
+                     prob=dyn.bal_prob)
+        return whiten(x, dyn.whiten_limit, 0.01, 0.25)
 
     # ------------------------------------------------------------ streaming
     def init_cache(self, batch_size: int, left: int,
@@ -599,16 +729,18 @@ class Zipformer2Stack(nn.Module):
                  kernel_size: int, causal: bool,
                  dtype: torch.dtype = torch.float32,
                  pos_variant: str = "fourier",
-                 full_dim_bypass: bool = False, dropout: float = 0.1):
+                 full_dim_bypass: bool = False, dropout: float = 0.1,
+                 dynamics: bool = False):
         super().__init__()
         self.downsample_factor = downsample
         self.embed_dim = embed_dim
         self.full_dim_bypass = full_dim_bypass
+        self.dynamics = dynamics
         self.layers = nn.ModuleList(
             Zipformer2EncoderLayer(embed_dim, ff_dim, num_heads,
                                    query_head_dim, value_head_dim,
                                    pos_head_dim, pos_dim, kernel_size,
-                                   causal, dtype, dropout)
+                                   causal, dtype, dropout, dynamics)
             for _ in range(num_layers))
         self.downsample = SimpleDownsample(downsample)
         self.up = SimpleUpsample(downsample)
@@ -619,7 +751,8 @@ class Zipformer2Stack(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 attn_mask_fn, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                step: Optional[float] = None) -> torch.Tensor:
         T = x.shape[1]
         ds = self.downsample_factor
         x_orig = x
@@ -630,18 +763,25 @@ class Zipformer2Stack(nn.Module):
         attn_mask = attn_mask_fn(Td, ds, pad_mask)
         pos_emb = self.penc(Td, x.device)
         for layer in self.layers:
-            x = layer(x, pos_emb, pad_mask, attn_mask, training, generator)
+            x = layer(x, pos_emb, pad_mask, attn_mask, training, generator,
+                      step)
         x = self.up(x, T)
         x = torch.where(make_non_pad_mask(lengths, T)[..., None], x, 0.0)
+        smin = None
+        if self.dynamics and training:
+            smin = ScheduledFloat((0.0, 0.9), (20000.0, 0.2))(
+                NO_STEP if step is None else float(step))
         if self.full_dim_bypass:
             return self.stack_bypass(
-                convert_num_channels(x_orig, self.embed_dim), x)
-        return self._common_bypass(x_orig, x)
+                convert_num_channels(x_orig, self.embed_dim), x,
+                scale_min=smin)
+        return self._common_bypass(x_orig, x, smin)
 
-    def _common_bypass(self, x_orig: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
+    def _common_bypass(self, x_orig: torch.Tensor, x: torch.Tensor,
+                       scale_min: Optional[float] = None) -> torch.Tensor:
         d = min(x_orig.shape[-1], self.embed_dim)
-        out = self.stack_bypass(x_orig[..., :d], x[..., :d])
+        out = self.stack_bypass(x_orig[..., :d], x[..., :d],
+                                scale_min=scale_min)
         if self.embed_dim > d:
             out = torch.cat([out, x[..., d:].to(out.dtype)], dim=-1)
         return out
@@ -689,7 +829,7 @@ class Zipformer2Config:
     change no value, and its kernel switches (use_flash_attn,
     flash_min_batch, score_dtype): the port computes the weights with its
     CUDA kernel on the card at every batch size, with f32 scores, as the
-    JAX `fused` path does. `dynamics=True` is not ported and raises."""
+    JAX `fused` path does."""
     feature_dim: int = 80
     downsampling_factor: Tuple[int, ...] = (1, 2, 4, 8, 4, 2)
     num_encoder_layers: Tuple[int, ...] = (2, 2, 2, 2, 2, 2)
@@ -734,9 +874,6 @@ class Zipformer2(nn.Module):
     def __init__(self, config: Zipformer2Config):
         super().__init__()
         cfg = self.config = config
-        if cfg.dynamics:
-            raise NotImplementedError("the zipformer training dynamics "
-                                      "(dynamics=True) are not ported")
         dt = dtype_of(cfg.dtype)
         self.embed = Conv2dSubsampling(cfg.feature_dim, cfg.encoder_dim[0],
                                        dtype=dt, causal=cfg.causal)
@@ -757,7 +894,8 @@ class Zipformer2(nn.Module):
                 dtype=dt,
                 pos_variant=cfg.pos_variant,
                 full_dim_bypass=cfg.full_dim_bypass,
-                dropout=cfg.dropout)
+                dropout=cfg.dropout,
+                dynamics=cfg.dynamics)
             for i in range(len(cfg.encoder_dim)))
         self.out_downsample = SimpleDownsample(
             cfg.output_downsampling_factor)
@@ -780,19 +918,22 @@ class Zipformer2(nn.Module):
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
                 chunk_size: int = -1, left_context_chunks: int = -1,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                step: Optional[float] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`training` turns on dropout and the feature mask, drawn from
-        `generator` (on the input's device); off, the forward is the
-        serving forward."""
+        `generator` (on the input's device), and with `dynamics` the
+        training dynamics at the global `step` (a host number); off, the
+        forward is the serving forward."""
         x, lens = self.embed(feats, lengths)
         return self.encode_embedded(x, lens, chunk_size, left_context_chunks,
-                                    training, generator)
+                                    training, generator, step)
 
     def encode_embedded(self, x: torch.Tensor, lens: torch.Tensor,
                         chunk_size: int = -1, left_context_chunks: int = -1,
                         training: bool = False,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        step: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The stacks on post-subsampling features (B, T, dim0)."""
         cfg = self.config
@@ -814,7 +955,7 @@ class Zipformer2(nn.Module):
 
         outputs = []
         for i, stack in enumerate(self.stacks):
-            x = stack(x, lens, attn_mask_fn, training, generator)
+            x = stack(x, lens, attn_mask_fn, training, generator, step)
             if keep is not None:
                 d_idx = torch.arange(x.shape[-1], device=x.device)
                 x = x * torch.where(

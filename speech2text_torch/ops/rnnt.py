@@ -1,4 +1,6 @@
-"""Transducer lattice forward (port of speech2text_tpu/ops/rnnt.py:26-117).
+"""Transducer lattice forward and the full-lattice RNN-T loss (port of
+speech2text_tpu/ops/rnnt.py: `lattice_forward` :26-117, `rnnt_alpha`
+:121-138, the clamped NLL :148-178 and `rnnt_loss` :182-205).
 
 The alpha recursion
     alpha[t,u] = logaddexp(alpha[t-1,u] + blank[t-1,u],
@@ -9,6 +11,14 @@ vectorised over (B, U+1), computes the lattice, and autograd gives the
 beta pass. Each diagonal's alphas are kept, and the total is read at each
 utterance's final cell after the loop, which gives the value and the
 gradients of JAX's in-loop capture.
+
+`rnnt_loss` takes the joiner's raw (B, T, U+1, V) logits: an f32
+log-softmax, the emit arcs gathered at the targets and the blank arcs,
+then the lattice. With `clamp` ≥ 0 (torchaudio's semantics) the gradient
+of each utterance's NLL with respect to its logits is clipped to
+±clamp before the reduction's scale multiplies in (an autograd.Function
+that takes the raw gradient in its forward, so the lattice's graph is
+freed there).
 
 Conventions: blank id 0; the u=0 row is the "no label yet" state;
 out-of-lattice cells hold NEG_INF (finite, so sums of two stay finite in
@@ -90,3 +100,60 @@ def lattice_forward(px: torch.Tensor, py: torch.Tensor,
     u_c = u_lens.clamp(0, U)
     total = (torch.stack(alphas)[d_c, b_idx, u_c] + py_d[d_c, b_idx, u_c])
     return torch.where(valid, total, NEG_INF)
+
+
+def rnnt_nll(logits: torch.Tensor, targets: torch.Tensor,
+             logit_lengths: torch.Tensor, target_lengths: torch.Tensor,
+             blank: int = 0) -> torch.Tensor:
+    """Per-utterance NLL (B,) of raw logits (B, T, U+1, V), f32."""
+    B, T, U1, V = logits.shape
+    U = U1 - 1
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    tgt = targets.to(device=logits.device, dtype=torch.int64)[:, :U]
+    px = torch.gather(log_probs[:, :, :U], 3,
+                      tgt[:, None, :, None].expand(B, T, U, 1))[..., 0]
+    py = log_probs[..., blank]
+    return -lattice_forward(px, py, logit_lengths, target_lengths)
+
+
+class _ClampedNll(torch.autograd.Function):
+    """NLL whose per-utterance logits-gradient is clipped to ±clamp, then
+    scaled by the incoming gradient of each utterance."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, logit_lengths, target_lengths, blank,
+                clamp):
+        with torch.enable_grad():
+            leaf = logits.detach().requires_grad_(True)
+            nll = rnnt_nll(leaf, targets, logit_lengths, target_lengths,
+                           blank)
+            (raw,) = torch.autograd.grad(nll.sum(), leaf)
+        ctx.save_for_backward(torch.clamp(raw, -clamp, clamp))
+        return nll.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        (raw,) = ctx.saved_tensors
+        grad = raw * g.reshape(g.shape + (1,) * (raw.ndim - 1))
+        return grad.to(raw.dtype), None, None, None, None, None
+
+
+def rnnt_loss(logits: torch.Tensor, targets: torch.Tensor,
+              logit_lengths: torch.Tensor, target_lengths: torch.Tensor,
+              blank: int = 0, reduction: str = "mean",
+              clamp: float = -1.0) -> torch.Tensor:
+    """The transducer loss on raw logits (B, T, U+1, V): reduction
+    "mean", "sum" or "none" of the per-utterance NLL. `clamp` ≥ 0 clips
+    each utterance's logits-gradient to ±clamp (< 0 or None: off); in a
+    forward without a gradient it changes nothing, and is skipped."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"unknown reduction {reduction}")
+    if clamp is not None and clamp >= 0 and torch.is_grad_enabled() \
+            and logits.requires_grad:
+        nll = _ClampedNll.apply(logits, targets, logit_lengths,
+                                target_lengths, blank, float(clamp))
+    else:
+        nll = rnnt_nll(logits, targets, logit_lengths, target_lengths, blank)
+    if reduction == "none":
+        return nll
+    return nll.sum() if reduction == "sum" else nll.mean()

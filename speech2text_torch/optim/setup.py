@@ -4,15 +4,20 @@ its schedule from the YAML `optim_setup` section.
 Optimizers: Adam and AdamW with optax's semantics (optim/adam.py),
 ScaledAdam. Schedules: Warmup (the default), Eden, Cosine_Warmup,
 Cosine_Annealing, Noam_Hold_Annealing, with the JAX package's defaults.
-An unknown type raises ValueError; per-module learning rates
-(`seperate_lr`, the reference's spelling), which no recipe sets, raise
-NotImplementedError. Global-norm clipping (`trainer.gradient_clip_val`)
-is the training step's (optim/adam.py:clip_by_global_norm_).
+An unknown type raises ValueError. Per-module learning rates
+(`seperate_lr`, the reference's spelling; setup.py:94-113 of the JAX
+package, optax.multi_transform): with `seperate_lr.apply`, each top-level
+module named in `seperate_lr.config` as `<module>_lr` gets an optimizer
+of its own whose schedule has that base lr, the other parameters one with
+the default lr (`MultiOptimizer`); each optimizer sees only its
+parameters, so ScaledAdam clips each group by its own norms. Global-norm
+clipping (`trainer.gradient_clip_val`) is the training step's
+(optim/adam.py:clip_by_global_norm_).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import torch
 
@@ -52,20 +57,78 @@ def build_schedule(kind: str, lr: float, c: Dict[str, Any]
     raise ValueError(f"unknown lr scheduler {kind}")
 
 
-def OptimSetup(config: Dict[str, Any], params: Iterable[torch.Tensor]
+class MultiOptimizer:
+    """Optimizers of disjoint parameter groups (by name) stepped together,
+    as optax.multi_transform steps its transforms."""
+
+    def __init__(self, optimizers: Dict[str, Any]):
+        self.optimizers = optimizers
+
+    def zero_grad(self) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad()
+
+    def step(self) -> None:
+        for opt in self.optimizers.values():
+            opt.step()
+
+    def state_dict(self) -> dict:
+        return {name: opt.state_dict()
+                for name, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if set(state) != set(self.optimizers):
+            raise ValueError(f"optimizer state of groups {sorted(state)}, "
+                             f"not {sorted(self.optimizers)}")
+        for name, opt in self.optimizers.items():
+            opt.load_state_dict(state[name])
+
+
+def OptimSetup(config: Dict[str, Any],
+               params: Iterable[Union[torch.Tensor,
+                                      Tuple[str, torch.Tensor]]]
                ) -> Tuple[Any, Callable[[int], float]]:
     """config = the `optim_setup` section → (optimizer over `params`,
-    schedule)."""
-    if (config.get("seperate_lr") or {}).get("apply"):
-        raise NotImplementedError("per-module learning rates (seperate_lr) "
-                                  "are not ported")
+    schedule). `params` are tensors or, as `seperate_lr` needs, (name,
+    tensor) pairs such as `model.named_parameters()`; those that take no
+    gradient (`requires_grad` off, such as an LSTM's zero input biases)
+    are left out. The schedule returned is the default group's."""
+    params = [p for p in params
+              if (p[1] if isinstance(p, tuple) else p).requires_grad]
+    named = bool(params) and isinstance(params[0], tuple)
     opt_cfg = config["optimizer"]
     kw = dict(opt_cfg.get("config") or {})
     lr = float(kw.pop("lr", 1e-3))
     sched_cfg = config.get("lr_scheduler") or {}
-    schedule = build_schedule(sched_cfg.get("type", "Warmup"), lr,
-                              sched_cfg.get("config") or {})
-    kind = opt_cfg["type"]
+    kind = sched_cfg.get("type", "Warmup")
+    schedule = build_schedule(kind, lr, sched_cfg.get("config") or {})
+    sep = config.get("seperate_lr") or {}
+    if not sep.get("apply"):
+        tensors = [p for _, p in params] if named else params
+        return _optimizer(opt_cfg["type"], kw, tensors, schedule), schedule
+    if not named:
+        raise ValueError("seperate_lr needs the parameters' names "
+                         "(model.named_parameters())")
+    group_lrs = {k[:-len("_lr")]: float(v)
+                 for k, v in (sep.get("config") or {}).items()
+                 if k.endswith("_lr")}
+    groups: Dict[str, List[torch.Tensor]] = {"default": []}
+    for name, p in params:
+        top = name.split(".")[0]
+        groups.setdefault(top if top in group_lrs else "default",
+                          []).append(p)
+    optimizers = {}
+    for group, tensors in groups.items():
+        if not tensors:
+            continue
+        sched = schedule if group == "default" else build_schedule(
+            kind, group_lrs[group], sched_cfg.get("config") or {})
+        optimizers[group] = _optimizer(opt_cfg["type"], kw, tensors, sched)
+    return MultiOptimizer(optimizers), schedule
+
+
+def _optimizer(kind: str, kw: Dict[str, Any], params: List[torch.Tensor],
+               schedule: Callable[[int], float]):
     if kind in ("Adam", "AdamW"):
         # optax.adamw decays every parameter by weight_decay (default 1e-2)
         wd = kw.get("weight_decay", 1e-2) if kind == "AdamW" else 0.0
@@ -81,4 +144,4 @@ def OptimSetup(config: Dict[str, Any], params: Iterable[torch.Tensor]
             scalar_lr_scale=kw.get("scalar_lr_scale", 0.1))
     else:
         raise ValueError(f"unknown optimizer {kind}")
-    return opt, schedule
+    return opt

@@ -82,11 +82,11 @@ class CtcTask(AsrTaskBase):
 
     def train_losses(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                      batch: Batch, generator: Optional[torch.Generator],
-                     chunk_generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     chunk_generator: Optional[torch.Generator] = None,
+                     step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """A training step's {"loss", "frames"} (the input frames, JAX's
         metric), dropout drawn from `generator`; a CTC task takes no
-        chunk, so `chunk_generator` is not used."""
+        chunk and no step (its encoders have no training dynamics)."""
         logits, out_lens = self.model(feats, feat_lens, training=True,
                                       generator=generator)
         return {"loss": self._loss(logits, out_lens, batch),

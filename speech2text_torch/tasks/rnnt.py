@@ -1,19 +1,26 @@
-"""Transducer model assembly and the pruned RNN-T task (port of
+"""Transducer model assembly and the transducer tasks (port of
 speech2text_tpu/tasks/rnnt.py): `RnntModel` (encoder + decoder head +
 predictor + joiner, built by models/factories.py: a Zipformer2 or a
-Conformer encoder, an Identity or Projector head) with its training
-forward and the predictor and joiner steps decoding needs, the random
-chunk choice of chunked-causal training (`sample_chunk`), the pruned
-RNN-T task loss with its optional CTC branch on the head's logits
-(`PrunedRnntLossFn`), the training losses of a step (`train_losses`)
-and `PrunedRnntTask`: the loss of its YAML (taken in training by
-train/step.py:take_step), the evaluation forward with validation losses
-(or, with `metric.encoder_streaming`, the chunk-masked encoder alone:
-simulated streaming; a Conformer runs unmasked, as in JAX), and
-hypotheses as text from the decoder the `metric` section names
+Conformer encoder, an Identity or Projector head, a Stateless or LSTM
+predictor) with its training forward and the predictor and joiner steps
+decoding needs, the random chunk choice of chunked-causal training
+(`sample_chunk`), the loss combination of each task (`PrunedRnntLossFn`:
+the pruned RNN-T loss with its optional CTC branch on the head's logits;
+`RnntLossFn`: the full-lattice RNN-T loss; `HybridRnntLossFn`: the
+full-lattice loss plus the CTC loss of the Projector head, weighted;
+`loss_fn_of` picks one for a YAML), the training losses of a step
+(`train_losses`, at the global step the Zipformer2's training dynamics
+read) and the tasks `PrunedRnntTask`, `RnntTask` and
+`CtcHybridRnntTask`, which share `TransducerTask`: the loss of its YAML
+(taken in training by train/step.py:take_step), the evaluation forward
+with the validation losses of the task's loss (or, with
+`metric.encoder_streaming`, the chunk-masked encoder alone: simulated
+streaming; a Conformer runs unmasked, as in JAX), and hypotheses as text
+from the transducer decoder the `metric` section names
 (decoding.py:build_decoding: greedy, or beam search with an optional
-RNN-LM from `metric.lm_fusion`, `load_fusion_lm`). `metric.int8` and a
-CTC decode method raise NotImplementedError."""
+RNN-LM from `metric.lm_fusion`, `load_fusion_lm`); the hybrid task
+decodes with the transducer too, as JAX's does. `metric.int8` and a CTC
+decode method raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ..models.factories import (DecoderFactory, EncoderFactory,
 from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
 from ..models.rnn_lm import RnnLm, RnnLmConfig
+from ..models.zipformer import Zipformer2
 from ..train.checkpoint import average_checkpoints
 from .base import AsrTaskBase, Batch
 
@@ -66,17 +74,19 @@ class RnntModel(nn.Module):
                 labels: torch.Tensor, label_lens: torch.Tensor,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                chunk_size: int = -1, left_context_chunks: int = -1
-                ) -> Dict[str, torch.Tensor]:
+                chunk_size: int = -1, left_context_chunks: int = -1,
+                step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The training forward (RnntModel.__call__): encoder → decoder
         head, and encoder → predictor → joiner; `training` turns on the
         encoder's dropout and feature mask and the head's dropout, drawn
-        from `generator`. A Conformer takes no chunk."""
+        from `generator`, and a Zipformer2's training dynamics at the
+        global `step`. A Conformer takes no chunk and no step."""
+        kw = {"step": step} if isinstance(self.encoder, Zipformer2) else {}
         with record_function("encoder"):
             enc, enc_lens = self.encoder(feats, feat_lens, chunk_size,
                                          left_context_chunks,
                                          training=training,
-                                         generator=generator)
+                                         generator=generator, **kw)
             dec, dec_lens = self.decoder(enc, enc_lens, training=training,
                                          generator=generator)
         with record_function("joiner_losses"):
@@ -156,19 +166,80 @@ class PrunedRnntLossFn:
         return losses
 
 
-def train_losses(model: RnntModel, loss_fn: PrunedRnntLossFn,
-                 feats: torch.Tensor, feat_lens: torch.Tensor,
-                 labels: torch.Tensor, label_lens: torch.Tensor,
-                 chunk: Tuple[int, int],
-                 generator: Optional[torch.Generator]
-                 ) -> Dict[str, torch.Tensor]:
+class RnntLossFn:
+    """RnntTask.loss_fn (tasks/rnnt.py:259-265): the `Rnnt` loss of the
+    YAML's `loss` section on the joiner's full (B, T, U+1, V) logits;
+    {"loss"}."""
+
+    def __init__(self, loss_config: Dict[str, Any]):
+        self.loss = Loss(loss_config)
+
+    def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
+                 label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with record_function("rnnt_loss"):
+            return {"loss": self.loss({"logits": out["logits"],
+                                       "logits_length": out["enc_lens"],
+                                       "label": labels,
+                                       "label_length": label_lens})}
+
+
+class HybridRnntLossFn:
+    """CtcHybridRnntTask.loss_fn (tasks/rnnt.py:289-301): rnnt_weight
+    (default 0.5) · the full-lattice RNN-T loss (`rnnt_config`) +
+    ctc_weight (default 0.5) · the CTC loss (`ctc_config`) of the
+    decoder head's logits; {"loss", "rnnt_loss", "ctc_loss"}."""
+
+    def __init__(self, loss_config: Dict[str, Any]):
+        self.rnnt_weight = float(loss_config.get("rnnt_weight", 0.5))
+        self.ctc_weight = float(loss_config.get("ctc_weight", 0.5))
+        self.rnnt_loss = RnntLossFn({"model": "Rnnt", "config":
+                                     loss_config.get("rnnt_config", {})})
+        self.ctc_loss = Loss({"model": "CTC", "config":
+                              loss_config.get("ctc_config", {})})
+
+    def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
+                 label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        rnnt = self.rnnt_loss(out, labels, label_lens)["loss"]
+        with record_function("ctc_loss"):
+            ctc = self.ctc_loss({"logits": out["dec"],
+                                 "logits_length": out["dec_lens"],
+                                 "label": labels,
+                                 "label_length": label_lens})
+        return {"loss": self.rnnt_weight * rnnt + self.ctc_weight * ctc,
+                "rnnt_loss": rnnt, "ctc_loss": ctc}
+
+
+LOSS_FNS = {"Pruned_Rnnt": PrunedRnntLossFn, "Rnnt": RnntLossFn,
+            "CTC_Hybrid_Rnnt": HybridRnntLossFn}
+
+
+def loss_fn_of(task: str, config: Dict[str, Any]):
+    """The loss combination of the transducer task type `task` for the
+    training config `config`; the pruned task needs `joiner.prune_range`
+    > 0, the others ≤ 0 (ValueError otherwise)."""
+    if task not in LOSS_FNS:
+        raise NotImplementedError(f"task {task!r} is not a transducer task "
+                                  f"of the port ({', '.join(LOSS_FNS)})")
+    pruned = config["joiner"].get("prune_range", -1) > 0
+    if pruned != (task == "Pruned_Rnnt"):
+        raise ValueError(f"task {task} requires joiner.prune_range "
+                         f"{'> 0' if task == 'Pruned_Rnnt' else '<= 0'}")
+    return LOSS_FNS[task](config["loss"])
+
+
+def train_losses(model: RnntModel, loss_fn, feats: torch.Tensor,
+                 feat_lens: torch.Tensor, labels: torch.Tensor,
+                 label_lens: torch.Tensor, chunk: Tuple[int, int],
+                 generator: Optional[torch.Generator],
+                 step: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The training forward with the chunk `chunk` = (chunk_size,
-    left_context_chunks) and dropout and feature masks from `generator`,
-    then `loss_fn`: its losses and "frames", the encoder's output frames
-    (JAX's metric)."""
+    left_context_chunks), dropout and feature masks from `generator` and
+    the global `step`, then `loss_fn`: its losses and "frames", the
+    encoder's output frames (JAX's metric)."""
     cs, lc = chunk
     out = model(feats, feat_lens, labels, label_lens, training=True,
-                generator=generator, chunk_size=cs, left_context_chunks=lc)
+                generator=generator, chunk_size=cs, left_context_chunks=lc,
+                step=step)
     with record_function("joiner_losses"):
         losses = loss_fn(out, labels, label_lens)
     losses["frames"] = out["enc_lens"].sum()
@@ -223,21 +294,21 @@ def streaming_chunks(metric: Dict[str, Any]) -> Tuple[int, int]:
             int(metric.get("streaming_left_chunks", 4)))
 
 
-class PrunedRnntTask(AsrTaskBase):
-    """The pruned RNN-T task (tasks/rnnt.py:PrunedRnntTask): tokenizer,
-    featurizer, model, loss and decoding of one training YAML; the fusion
-    LM, if any, is the submodule `lm`."""
+class TransducerTask(AsrTaskBase):
+    """What the transducer tasks share (tasks/rnnt.py:BaseRnntTask):
+    tokenizer, featurizer, model, the loss combination of the subclass's
+    `task_type` (`loss_fn_of`) and decoding of one training YAML; the
+    fusion LM, if any, is the submodule `lm`."""
 
     def __init__(self, config: Dict[str, Any]):
-        if config["joiner"].get("prune_range", -1) <= 0:
-            raise ValueError("PrunedRnntTask requires joiner.prune_range > 0")
+        loss = loss_fn_of(self.task_type, config)
         super().__init__(config)
         self.model = RnntModel.from_config(config)
         out_dim = self.model.joiner.config.output_dim
         if len(self.tokenizer) > out_dim:
             raise ValueError(f"the tokenizer has {len(self.tokenizer)} "
                              f"labels, the joiner only {out_dim} outputs")
-        self.loss = PrunedRnntLossFn(config["loss"])
+        self.loss = loss
         metric = config.get("metric") or {}
         if metric.get("int8"):
             raise NotImplementedError("metric.int8 (int8 decoding) is not "
@@ -271,14 +342,14 @@ class PrunedRnntTask(AsrTaskBase):
 
     def train_losses(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                      batch: Batch, generator: Optional[torch.Generator],
-                     chunk_generator: torch.Generator
-                     ) -> Dict[str, torch.Tensor]:
-        """A training step's losses (`train_losses`) with the chunk drawn
-        from `chunk_generator` (a CPU generator)."""
+                     chunk_generator: torch.Generator,
+                     step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """A training step's losses (`train_losses`) at the global `step`
+        with the chunk drawn from `chunk_generator` (a CPU generator)."""
         chunk = sample_chunk(self.model.encoder.config, chunk_generator)
         return train_losses(self.model, self.loss, feats, feat_lens,
                             batch["label"], batch["label_length"], chunk,
-                            generator)
+                            generator, step)
 
     def eval_loss_metrics(self, out: Dict[str, torch.Tensor], batch: Batch
                           ) -> Dict[str, torch.Tensor]:
@@ -290,3 +361,23 @@ class PrunedRnntTask(AsrTaskBase):
                                                     eval_out["enc_lens"])
         return ids_to_texts(tokens.cpu().numpy(), counts.cpu().numpy(),
                             self.tokenizer)
+
+
+class PrunedRnntTask(TransducerTask):
+    """The pruned RNN-T task (tasks/rnnt.py:PrunedRnntTask):
+    `joiner.prune_range` > 0, `PrunedRnntLossFn`."""
+    task_type = "Pruned_Rnnt"
+
+
+class RnntTask(TransducerTask):
+    """The full-lattice RNN-T task (tasks/rnnt.py:RnntTask):
+    `joiner.prune_range` ≤ 0, `RnntLossFn`; validation `val_loss`."""
+    task_type = "Rnnt"
+
+
+class CtcHybridRnntTask(TransducerTask):
+    """The CTC + RNN-T hybrid (tasks/rnnt.py:CtcHybridRnntTask):
+    `joiner.prune_range` ≤ 0, `HybridRnntLossFn` with the CTC branch on
+    the Projector head; validation `val_loss`, `val_rnnt_loss`,
+    `val_ctc_loss`; decoding by the transducer."""
+    task_type = "CTC_Hybrid_Rnnt"

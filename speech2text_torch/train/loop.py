@@ -1,13 +1,24 @@
 """The training loop (port of speech2text_tpu/train/loop.py:Trainer).
 
 `Trainer(task, config, workdir, seed, device)` trains a task (a
-`PrunedRnntTask` or a `CtcTask`) on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
+transducer task of tasks/rnnt.py or a `CtcTask`) on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
 sets `trainer.platform: cpu`; with no CUDA device and no such request it
 raises. `fit` takes steps until `max_steps` (or `max_epochs` epochs of the
 bucketed pipeline), evaluates and checkpoints every `val_check_interval`
 (a fraction of an epoch, or steps when > 1) and at the last step, and
 resumes from the latest checkpoint of `workdir/checkpoints` (or of
-`resume`) with the pipeline fast-forwarded to the restored step.
+`resume`) with the pipeline fast-forwarded to the restored step. The
+global step (0-based, the restored one after a resume) goes into the
+task's training losses, where the Zipformer2's training dynamics read
+their schedules.
+
+The host-RSS watchdog (`trainer.max_rss_gb` > 0, the JAX loop's): every
+`log_interval` steps, when the process's current resident set exceeds
+`max_rss_gb` GB, the loop checkpoints the step (with the last
+evaluation's metrics), flushes its logs and then, with `rss_restart`
+(the default), replaces the process by a fresh one with the same command
+line (`os.execv` of `restart_argv()`), which resumes from that
+checkpoint; without it `fit` returns.
 
 Per-step randomness comes from generators seeded from (seed, step,
 stream), as the JAX loop folds the step into its key: augmentation and
@@ -26,14 +37,16 @@ span, and `history` keeps per step the host clock at its end, its data
 wait and the seconds of an evaluation after it.
 
 Not ported, and refused when the YAML asks for them: a device mesh of
-more than one device (multi-GPU data parallelism), FSDP,
-`accumulate_grad_batches > 1` and the host-RSS watchdog (`max_rss_gb`).
+more than one device (multi-GPU data parallelism), FSDP and
+`accumulate_grad_batches > 1`.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import resource
+import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -72,6 +85,27 @@ def resolve_device(device: Union[str, torch.device, None],
     return dev
 
 
+def rss_gb() -> float:
+    """The process's current resident set in GB (/proc/self/statm), or,
+    where /proc is absent, its peak (ru_maxrss)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * resource.getpagesize() / 1e9
+    except (OSError, ValueError, IndexError):
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def restart_argv() -> List[str]:
+    """This process's command line: `python -m <module> args` when it runs
+    a module (the argv[0] of `-m` is the module's file, which does not
+    run as a script), else `python argv`."""
+    spec = getattr(sys.modules.get("__main__"), "__spec__", None)
+    if spec is not None and spec.name:
+        return [sys.executable, "-m", spec.name] + sys.argv[1:]
+    return [sys.executable] + sys.argv
+
+
 def _check_unported(tcfg: Dict[str, Any]) -> None:
     mesh = tcfg.get("mesh") or {}
     if any(int(mesh.get(axis, 1)) not in (-1, 1)
@@ -83,9 +117,6 @@ def _check_unported(tcfg: Dict[str, Any]) -> None:
     if int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1:
         raise NotImplementedError("accumulate_grad_batches > 1 is not "
                                   "ported")
-    if float(tcfg.get("max_rss_gb", 0) or 0) > 0:
-        raise NotImplementedError("the host-RSS watchdog (max_rss_gb) is "
-                                  "not ported")
 
 
 def _merge_state(model: torch.nn.Module,
@@ -125,6 +156,8 @@ class Trainer:
         self.max_steps = tcfg.get("max_steps")
         self.val_check_interval = tcfg.get("val_check_interval", 1.0)
         self.log_interval = int(tcfg.get("log_interval", 50))
+        self.max_rss_gb = float(tcfg.get("max_rss_gb", 0) or 0)
+        self.rss_restart = bool(tcfg.get("rss_restart", True))
         ck = (config.get("callbacks") or {}).get("model_chkpt_config") or {}
         self.ckpt = CheckpointManager(
             os.path.join(workdir, "checkpoints"),
@@ -155,7 +188,7 @@ class Trainer:
             n = _merge_state(model, finetune_state)
             log.info("loaded finetune base weights (%d tensors)", n)
         self.optimizer, self.schedule = OptimSetup(
-            self.config["optim_setup"], model.parameters())
+            self.config["optim_setup"], model.named_parameters())
         restored = None
         if resume:
             mgr = self.ckpt if os.path.abspath(resume) == \
@@ -212,14 +245,15 @@ class Trainer:
         take_step over the task's `train_losses` (dropout and the chunk
         from the step's generators) with the config's clipping. Returns
         the step's metrics (train_loss, the task's other losses,
-        grad_norm, frames) as 0-d tensors on the device."""
+        grad_norm, frames) as 0-d tensors on the device. `step` is the
+        global step (0-based) the training dynamics read."""
         task = self.task
         augment_gen, dropout_gen, chunk_gen = self.generators(step)
         feats, feat_lens = task.featurize(batch, augment_gen, training=True)
         metrics = take_step(
             task.model,
             lambda: task.train_losses(feats, feat_lens, batch, dropout_gen,
-                                      chunk_gen),
+                                      chunk_gen, step=step),
             self.optimizer, self.clip)
         metrics["train_loss"] = metrics.pop("loss")
         return metrics
@@ -277,9 +311,29 @@ class Trainer:
                     self.save(step, self.last_eval)
                     rec["eval_s"] = time.perf_counter() - t0
                 self.history.append(rec)
+                if self.max_rss_gb and step % self.log_interval == 0 \
+                        and rss_gb() > self.max_rss_gb:
+                    self._rss_exit(step)
+                    return self.last_eval
         finally:
             train_iter.close()
         return self.last_eval
+
+    def _rss_exit(self, step: int) -> None:
+        """The watchdog's way out at `step`: checkpoint, flush, then
+        exec the same command line (`rss_restart`) or return."""
+        log.warning("host RSS %.1f GB > max_rss_gb %.1f at step %d: "
+                    "checkpointing and %s", rss_gb(), self.max_rss_gb, step,
+                    "exec-restarting" if self.rss_restart else "exiting")
+        if self.ckpt.latest_step() != step:
+            self.save(step, self.last_eval)
+        self._metrics_file.flush()
+        self._tb.flush()
+        if self.rss_restart:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            argv = restart_argv()
+            os.execv(argv[0], argv)
 
     def _log(self, step: int, metrics: Dict[str, torch.Tensor], utts: int,
              frames: int, waits: List[float], dt: float) -> None:

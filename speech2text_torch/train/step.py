@@ -1,5 +1,5 @@
-"""The training step (port of bench.py:one_step with the pruned task's
-loss, speech2text_tpu/tasks/rnnt.py:329-372, and of the train step of
+"""The training step (port of bench.py:one_step with a transducer task's
+loss, speech2text_tpu/tasks/rnnt.py, and of the train step of
 speech2text_tpu/train/loop.py).
 
 `take_step` is the step's body, shared by `TrainStep` and
@@ -12,15 +12,18 @@ gradient norm before clipping and the frames as 0-d tensors on the
 device (reading them waits for the card).
 
 `TrainStep.from_config(train_config, device="cuda", seed=0)` builds, from
-a pruned RNN-T training YAML (a path or a loaded dict; a Zipformer2 or a
-Conformer encoder, an Identity or Projector head, the CTC branch of
-`loss.enable_ctc`), the featurizer of its `dataset`/`callbacks` sections
-(tasks/base.py), the model (seeded random weights), the loss combination
-of its `loss` section and the optimizer with its schedule from
-`optim_setup`, with no tokenizer or data pipeline.
-`step(pcm, pcm_lens, labels, label_lens)` featurizes (int16 or f32 PCM →
-fbank through kernel B2 on the card → CMVN; no dither or augmentation)
-and takes the step on caller-made tensors.
+a transducer training YAML (a path or a loaded dict; `task.type`
+Pruned_Rnnt, Rnnt or CTC_Hybrid_Rnnt; a Zipformer2 or a Conformer
+encoder, an Identity or Projector head, a Stateless or LSTM predictor,
+the CTC branch of `loss.enable_ctc`), the featurizer of its
+`dataset`/`callbacks` sections (tasks/base.py), the model (seeded random
+weights), the loss combination of its task (tasks/rnnt.py:loss_fn_of)
+and the optimizer with its schedule from `optim_setup`, with no
+tokenizer or data pipeline. `step(pcm, pcm_lens, labels, label_lens)`
+featurizes (int16 or f32 PCM → fbank through kernel B2 on the card →
+CMVN; no dither or augmentation) and takes the step on caller-made
+tensors, at the global step it counts from 0 (the one a Zipformer2's
+training dynamics read).
 
 It runs on `cuda` unless the caller passes `device="cpu"`. Dropout and
 feature masks come from a generator on the device, and the chunk choice
@@ -30,8 +33,10 @@ The step's phases are `torch.profiler.record_function` spans, which a
 profiler reads and which cost nothing without one: "featurize",
 "encoder" (with the decoder head) and "joiner_losses" (predictor, joiner
 with the simple loss and prune ranges, pruned loss and, inside it,
-"ctc_loss"; the two model spans are RnntModel.forward's), "backward" and
-"optimizer" (with the gradient norm and the clipping).
+"ctc_loss"; "rnnt_loss" for the full-lattice loss; the two model spans
+are RnntModel.forward's), "backward" (inside it, with the training
+dynamics, "regularizers_backward", the balancers' and whitening's extra
+gradients) and "optimizer" (with the gradient norm and the clipping).
 """
 
 from __future__ import annotations
@@ -46,8 +51,7 @@ from torch.profiler import record_function
 from ..config import load_config
 from ..optim import OptimSetup, clip_by_global_norm_
 from ..tasks.base import Featurizer
-from ..tasks.rnnt import PrunedRnntLossFn, RnntModel, sample_chunk, \
-    train_losses
+from ..tasks.rnnt import RnntModel, loss_fn_of, sample_chunk, train_losses
 
 
 def clip_value(config: Dict[str, Any]) -> Optional[float]:
@@ -90,22 +94,20 @@ class TrainStep:
 
     def __init__(self, config: Dict[str, Any],
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
-        task = (config.get("task") or {}).get("type", "Pruned_Rnnt")
-        if task != "Pruned_Rnnt":
-            raise NotImplementedError(f"task {task!r} is not ported "
-                                      f"(Pruned_Rnnt only)")
+        self.loss_fn = loss_fn_of(
+            (config.get("task") or {}).get("type", "Pruned_Rnnt"), config)
         self.device = torch.device(device)
         self.features = Featurizer(config)
         self.model = RnntModel.from_config(config)
         self.model.init_weights(torch.Generator().manual_seed(seed))
         for m in (self.features, self.model):
             m.to(self.device)
-        self.loss_fn = PrunedRnntLossFn(config["loss"])
         self.optimizer, _ = OptimSetup(config["optim_setup"],
-                                       self.model.parameters())
+                                       self.model.named_parameters())
         self.clip = clip_value(config)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.host_generator = torch.Generator().manual_seed(seed)
+        self.global_step = 0
 
     @classmethod
     def from_config(cls, train_config: Union[str, Dict[str, Any]],
@@ -128,10 +130,9 @@ class TrainStep:
     def step(self, pcm, pcm_lens, labels, label_lens,
              chunk: Optional[Tuple[int, int]] = None
              ) -> Dict[str, torch.Tensor]:
-        """One training step; returns take_step's {"loss",
-        "simple_loss", "pruned_loss" (and "ctc_loss" with the CTC branch),
-        "grad_norm", "frames"}, the losses of the step's forward, before
-        the update. `chunk` =
+        """One training step; returns take_step's {"loss", the task's
+        other losses, "grad_norm", "frames"}, the losses of the step's
+        forward, before the update. `chunk` =
         (chunk_size, left_context_chunks) fixes the chunk choice; by
         default it is drawn from the encoder config's lists."""
         feats, feat_lens = self.featurize(pcm, pcm_lens)
@@ -139,8 +140,11 @@ class TrainStep:
         if chunk is None:
             chunk = sample_chunk(self.model.encoder.config,
                                  self.host_generator)
+        step = self.global_step
+        self.global_step += 1
         return take_step(
             self.model,
             lambda: train_losses(self.model, self.loss_fn, feats, feat_lens,
-                                 labels, label_lens, chunk, self.generator),
+                                 labels, label_lens, chunk, self.generator,
+                                 step),
             self.optimizer, self.clip)

@@ -1,7 +1,9 @@
 """Shared fixtures of the Conformer family's port tests
-(tests/test_torch_ctc_task.py, tests/test_torch_conformer_inference.py):
+(tests/test_torch_ctc_task.py, tests/test_torch_conformer_inference.py,
+tests/test_torch_rnnt_family.py, tests/test_torch_rnnt_family_inference.py):
 a synthetic corpus with its subword model, and the training configs of a
-tiny CTC and a tiny pruned RNN-T + CTC Conformer on it."""
+tiny CTC, a tiny pruned RNN-T + CTC, a tiny RNN-T and a tiny CTC + RNN-T
+hybrid Conformer (LSTM predictor, full lattice) on it."""
 
 import json
 import os
@@ -93,6 +95,33 @@ def pruned_config(corpus, workdir):
                                       "config": {"lr": 0.045}},
                         "lr_scheduler": {"type": "Eden",
                                          "config": {"lr_batches": 7000}}}})
+    return cfg
+
+
+LSTM = {"model": "Lstm", "config": {
+    "output_dim": D, "symbol_embedding_dim": 24, "num_lstm_layers": 2,
+    "lstm_hidden_dim": 20}}
+
+
+def rnnt_config(corpus, workdir, hybrid=False):
+    """conformer_rnnt.yaml's recipe (conformer_hybrid_rnnt.yaml's with
+    `hybrid`) at tiny dims: LSTM predictor, the full joiner, AdamW +
+    Warmup with clipping 5.0."""
+    vocab = corpus["vocab"]
+    cfg = ctc_config(corpus, workdir)
+    cfg.update({
+        "task": dict(cfg["task"],
+                     type="CTC_Hybrid_Rnnt" if hybrid else "Rnnt"),
+        "predictor": {"model": "Lstm", "config": dict(
+            LSTM["config"], num_symbols=vocab)},
+        "joiner": {"input_dim": D, "output_dim": vocab, "prune_range": -1,
+                   "use_out_project": True, "inner_dim": 16},
+        "loss": ({"rnnt_weight": 0.75, "ctc_weight": 0.25} if hybrid else
+                 {"model": "Rnnt", "config": {"reduction": "mean"}}),
+        "metric": {"decode_method": "rnnt_greedy_search",
+                   "max_token_step": 1}})
+    if not hybrid:
+        cfg["decoder"] = {"model": "Identity", "config": {"dummy": -1}}
     return cfg
 
 

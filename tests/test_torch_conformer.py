@@ -30,6 +30,7 @@ from speech2text_torch.models.factories import (DecoderFactory,
                                                 EncoderFactory,
                                                 PredictorFactory)
 from speech2text_torch.models.layers import init_parameters
+from speech2text_torch.models.predictor import LstmPredictor
 from speech2text_torch.tasks.rnnt import RnntModel
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -262,8 +263,7 @@ def test_factories():
     for model in ("Emformer", "Wav2Vec2"):
         with pytest.raises(NotImplementedError):
             EncoderFactory({"model": model})
-    with pytest.raises(NotImplementedError):
-        PredictorFactory({"model": "Lstm"})
+    assert isinstance(PredictorFactory({"model": "Lstm"}), LstmPredictor)
     for fac in (EncoderFactory, DecoderFactory, PredictorFactory):
         with pytest.raises(ValueError):
             fac({"model": "Nope"})

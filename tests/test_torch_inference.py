@@ -301,8 +301,11 @@ def test_unported_options_raise(setup, monkeypatch):
             "--override", f"task.checkpoints_dir={setup['ckpt']['torch']}",
             "--override", f"task.export_path={setup['root'] / 'unported'}"]
     for ov in ("task.type=rnnt_inference",
-               "task.type=ctc_hybrid_rnnt_inference",
-               "task.type=cif_inference", "task.module_export=true",
+               "task.type=ctc_hybrid_rnnt_inference"):
+        # the full-lattice tasks refuse a pruned joiner
+        with pytest.raises(ValueError, match="prune_range"):
+            tinf.main(base + ["--override", ov])
+    for ov in ("task.type=cif_inference", "task.module_export=true",
                "task.onnx_export=true", "decoding.config.int8=true",
                "decoding.type=ctc_greedy_search",
                "decoding.type=ctc_prefix_beam_search"):

@@ -17,7 +17,7 @@ from speech2text_tpu.models.joiner import JoinerConfig as JJoinerConfig
 from speech2text_tpu.ops import pruned_rnnt as jp
 from speech2text_tpu.ops import rnnt as jr
 from speech2text_torch.convert import flax_to_state_dict
-from speech2text_torch.losses import CtcLoss, Loss
+from speech2text_torch.losses import CtcLoss, Loss, RnntLoss
 from speech2text_torch.models.joiner import Joiner, JoinerConfig
 from speech2text_torch.ops import pruned_rnnt as tp
 from speech2text_torch.ops import rnnt as tr
@@ -184,7 +184,8 @@ def test_loss_factory():
                             "clamp": 1.0}})
     assert loss.config.reduction == "sum"
     assert isinstance(Loss({"model": "CTC"}), CtcLoss)
-    for key in ("Rnnt", "MaskedCELoss", "MaskedKLDiv", "MaeLoss"):
+    assert isinstance(Loss({"model": "Rnnt"}), RnntLoss)
+    for key in ("MaskedCELoss", "MaskedKLDiv", "MaeLoss"):
         with pytest.raises(NotImplementedError):
             Loss({"model": key, "config": {}})
     with pytest.raises(ValueError):

@@ -214,10 +214,10 @@ def test_chunk_sampling_and_unported_options():
     assert sample_chunk(dataclasses.replace(enc_cfg, chunk_size=(-1,)),
                         g) == (-1, -1)
     bad = _config()
-    bad["encoder"]["config"]["dynamics"] = True
+    bad["task"] = {"type": "CTC"}
     with pytest.raises(NotImplementedError):
         TrainStep.from_config(bad, device="cpu")
     bad = _config()
-    bad["predictor"]["model"] = "Lstm"
-    with pytest.raises(NotImplementedError):
+    bad["task"] = {"type": "Rnnt"}      # a pruned joiner on the full task
+    with pytest.raises(ValueError, match="prune_range"):
         TrainStep.from_config(bad, device="cpu")

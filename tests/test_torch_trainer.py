@@ -307,8 +307,7 @@ def test_tb_writer_bytes_equal_jax(tmp_path, monkeypatch):
 def test_unported_options_raise(corpus, tmp_path):
     workdir = str(tmp_path / "x")
     for key, value in (("accumulate_grad_batches", 2),
-                       ("mesh", {"data": 2, "model": 1}), ("fsdp", True),
-                       ("max_rss_gb", 8.0)):
+                       ("mesh", {"data": 2, "model": 1}), ("fsdp", True)):
         cfg = _config(corpus, workdir, **{key: value})
         with pytest.raises(NotImplementedError):
             Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
@@ -370,7 +369,7 @@ def test_build_task_finetune_and_unported(corpus, tmp_path):
     assert all(torch.equal(got[k], want[k]) for k in want)
     trainer.close()
     for ov in ("callbacks.global_cmvn.apply=true",
-               "callbacks.frontend_save=true", "task.type=Rnnt"):
+               "callbacks.frontend_save=true", "task.type=CIF"):
         with pytest.raises(NotImplementedError):
             build_task.prepare([f"--training_config={path}", "--device",
                                 "cpu", f"--override={ov}"])
