@@ -102,6 +102,29 @@ Phases (any failed check raises and the script exits non-zero):
      build_task step, 1 per TrainStep step and per eval or test batch,
      and every B2 call of the build_task and inference runs held to the
      plain version with check_mel;
+ 14. (the remaining transducer recipes) zipformer_heldout.yaml with its
+     training dynamics through build_task and beside phase 9's step,
+     conformer_rnnt.yaml and conformer_hybrid_rnnt.yaml through
+     build_task and TrainStep, their three inference YAMLs with f32
+     tokens card = CPU on seeded weights;
+ 15. (the CIF, SSL and NNLM families) on phase 10's corpus, f32: (a)
+     conformer_cif.yaml at its 256 x 12 through build_task (10 steps, an
+     evaluation with WER, a bitwise resume), its step at bench.py's shape
+     split into encoder / CIF / Projector + CE + MAE / backward /
+     optimizer with its peak memory and a profiled step,
+     cif_greedy_search.yaml on its checkpoints, f32 tokens on seeded
+     weights card = CPU (a difference admitted only at a fire whose
+     accumulator came within 1e-5 of a threshold, each printed); (b)
+     conformer_ssl.yaml (256 x 12, 16 codebooks x 8192) through
+     build_task (5 steps, 3 B2 per step, an evaluation with acc, a
+     bitwise resume), its step at B=60 x 10 s in parts with the peak
+     memory reckoned beforehand, then conformer_ctc.yaml at the same
+     width finetuned from its checkpoint (every encoder tensor copied,
+     logits_layer not); (c) rnn_lm.yaml (256 / 512 x 2) through
+     build_task (20 steps, no B2, evaluations with acc, a bitwise
+     resume), its checkpoint fused into phase 11's beam + LM decode and
+     an f32 beam + LM request card = CPU; every B2 call of the runs held
+     to the plain version, 0 B1;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -123,7 +146,10 @@ error of the test batches checked), and under "stream" phase 12's (the
 demo's launches, launches per chunk, the worst B2 error over phase 12's
 chunks, B2's times at the B=1 step shape, and at B=16), and under
 "conformer" phase 13's (launches over the phase, per step and per test
-batch, the B2 calls checked and their worst error).
+batch, the B2 calls checked and their worst error), under "rnnt_family"
+phase 14's, and under "task_families" phase 15's per family (cif, ssl,
+nnlm: launches, per step, CIF's per test batch, the B2 calls checked and
+their worst error).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -2026,17 +2052,21 @@ def recipe_infer_argv(cfg, export_path, train_cfg, corpus):
             "--override", f"testset.test_data={corpus['eval_data']}"]
 
 
-def conformer_train_run(card, name, cfg, argv, steps, val_every, keys):
-    """build_task's main on `cfg` for `steps` steps (an evaluation and a
-    checkpoint every `val_every`), every B2 call held to the plain
-    version; returns the trainer and the run's record."""
+def conformer_train_run(card, name, cfg, argv, steps, val_every, keys,
+                        eval_keys=("val_loss", "wer"), fbank_per_step=2,
+                        fbank_per_eval_batch=1, vocab=128):
+    """build_task's main on `cfg` for `steps` steps (an evaluation with
+    `eval_keys` and a checkpoint every `val_every`), every B2 call held to
+    the plain version, `fbank_per_step` B2 launches per step and
+    `fbank_per_eval_batch` per eval batch; returns the trainer and the
+    run's record."""
     from speech2text_torch import build_task
     trainer, run_s, launches, peak, calls = counted_main(
         build_task.main, argv + ["--max_steps", str(steps)])
     task, workdir = trainer.task, trainer.workdir
     n_checked, worst_log, worst_energy = checked_calls(
         calls, f"{name} run", launches["fbank"])
-    assert len(task.tokenizer) == 128, \
+    assert vocab is None or len(task.tokenizer) == vocab, \
         f"{name}: the subword model has {len(task.tokenizer)} labels"
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
@@ -2052,11 +2082,11 @@ def conformer_train_run(card, name, cfg, argv, steps, val_every, keys):
         index = json.load(f)["checkpoints"]
     assert sorted(index, key=int) == [str(h["step"]) for h in evals]
     for step, m in index.items():
-        assert _finite_record(m, ("val_loss", "wer")), (step, m)
+        assert _finite_record(m, eval_keys), (step, m)
         assert os.path.exists(trainer.ckpt.path(int(step)))
     eval_batches = task.make_eval_pipeline().batches_per_epoch()
-    want = {"attn_weights": 0, "fbank": 2 * steps + len(evals)
-            * eval_batches}
+    want = {"attn_weights": 0, "fbank": fbank_per_step * steps + len(evals)
+            * eval_batches * fbank_per_eval_batch}
     assert launches == want, f"{name}: launches {launches}, expected {want}"
     hist = trainer.history
     step_ms = [1e3 * (b["end"] - a["end"]) for a, b in zip(hist, hist[1:])
@@ -2070,7 +2100,8 @@ def conformer_train_run(card, name, cfg, argv, steps, val_every, keys):
         f"{[round(r['loss'], 3) for r in lines]}; eval s "
         f"{[round(h['eval_s'], 2) for h in evals]} over {eval_batches} "
         f"batches; evals {index}; peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches} (0 B1, 2 B2 per step, 1 per eval batch); "
+        f"launches {launches} (0 B1, {fbank_per_step} B2 per step, "
+        f"{fbank_per_eval_batch} per eval batch); "
         f"{n_checked} B2 calls within check_mel (worst "
         f"{worst_energy:.3g} of the frame's mel energy, log "
         f"{worst_log:.3g})", card)
@@ -3017,6 +3048,549 @@ def phase_rnnt_family(card, report, tmp, trained):
         for kernel in ("attn_weights", "fbank")}
 
 
+# ------------------------------------------------------------ phase 15
+CIF_CFG = "configs/training/conformer_cif.yaml"
+CIF_INFER_CFG = "configs/inference/cif_greedy_search.yaml"
+SSL_CFG = "configs/training/conformer_ssl.yaml"
+CIF_STEPS, SSL_STEPS, FAM_RESUME_STEPS = 10, 5, 2
+LM_STEPS, LM_VAL_EVERY = 20, 10
+SSL_B, SSL_SECS = 60, 10
+# a CIF token that differs between the card and the CPU is admitted only
+# where the utterance's accumulator passed within this of a threshold
+CIF_EDGE = 1e-5
+CIF_KEYS = CTC_KEYS + ("ce_loss", "mae_loss")
+SSL_KEYS = CTC_KEYS + ("acc", "mask_rate")
+LM_KEYS = CTC_KEYS + ("acc",)
+FAM_SPANS = ("featurize", "backward", "optimizer")
+
+
+def at_width(enc_cfg, yaml_path):
+    """The encoder runs at the training YAML's own width and depth."""
+    from speech2text_torch.config import load_config
+    want = load_config(yaml_path)["encoder"]["config"]
+    got = dataclasses.asdict(enc_cfg)
+    assert all(got[k] == v for k, v in want.items()), (yaml_path, got)
+
+
+def fam_resume(card, name, argv, steps):
+    """A fresh Trainer from build_task.prepare restores step `steps`
+    (weights and optimizer state bitwise equal to the file) and takes
+    FAM_RESUME_STEPS more; returns its last evaluation."""
+    from speech2text_torch import build_task
+    trainer, fit_kw = build_task.prepare(
+        argv + ["--max_steps", str(steps + FAM_RESUME_STEPS)])
+    assert trainer.init_state(fit_kw["resume"],
+                              fit_kw["finetune_state"]) == steps
+    saved = trainer.ckpt.restore(steps)
+    assert _same_state(saved["model"], trainer.task.model.state_dict()), \
+        f"{name}: restored weights differ from the checkpoint"
+    assert _same_state(saved["optimizer"], trainer.optimizer.state_dict()), \
+        f"{name}: restored optimizer state differs from the checkpoint"
+    trainer.fit(**fit_kw)
+    trainer.close()
+    assert [h["step"] for h in trainer.history] == list(
+        range(steps + 1, steps + FAM_RESUME_STEPS + 1))
+    log(f"{name} resume: a fresh Trainer restored step {steps} (weights and "
+        f"AdamW state bitwise equal to the file), took steps "
+        f"{[h['step'] for h in trainer.history]}, eval {trainer.last_eval}",
+        card)
+    return trainer.last_eval
+
+
+def fire_margin(alphas, tail_threshold, threshold=1.0):
+    """The least distance of one utterance's integrate-and-fire
+    accumulator (f32, in frame order) from `threshold` over its frames, and
+    of the final residual from `tail_threshold`."""
+    acc = torch.zeros((), dtype=torch.float32)
+    margin = math.inf
+    for a in alphas:
+        new = acc + a
+        margin = min(margin, abs(float(new) - threshold))
+        acc = new - threshold if new >= threshold else new
+    return min(margin, abs(float(acc) - tail_threshold))
+
+
+def cif_card_cpu(task, cpu_model, batches, card):
+    """The free pass on the first CONF_CPU_BATCHES test batches (features
+    from the card's B2) on the card and on the CPU: counts and tokens
+    equal, but where an utterance's accumulator came within CIF_EDGE of a
+    threshold (each such case printed); returns the tokens compared and
+    the cases."""
+    n, cases = 0, []
+    tail = cpu_model.cif.config.tail_threshold
+    with torch.no_grad():
+        for i, batch in enumerate(batches[:CONF_CPU_BATCHES]):
+            feats, lens = task.featurize(batch)
+            got = task.model(feats, lens)
+            want = cpu_model(feats.cpu(), lens.cpu())
+            tok_g = got["logits"].argmax(-1).cpu()
+            tok_c = want["logits"].argmax(-1)
+            cg, cc = got["emit_counts"].cpu(), want["emit_counts"]
+            enc, enc_lens = cpu_model.encoder(feats.cpu(), lens.cpu())
+            alphas = cpu_model.cif.alphas(enc, enc_lens)
+            for b in range(len(cc)):
+                k = int(cc[b])
+                if int(cg[b]) == k and torch.equal(tok_g[b, :k],
+                                                   tok_c[b, :k]):
+                    n += k
+                    continue
+                margin = fire_margin(alphas[b, :int(enc_lens[b])], tail)
+                log(f"cif card/CPU: batch {i} row {b}: counts {int(cg[b])} /"
+                    f" {k}, accumulator margin {margin:.3g}", card)
+                assert margin < CIF_EDGE, \
+                    f"cif tokens differ on the card away from a fire edge " \
+                    f"(batch {i} row {b}, margin {margin})"
+                cases.append({"batch": i, "row": b, "margin": margin})
+    assert n > 0, "cif: the seeded model emitted no token"
+    return n, cases
+
+
+def cif_step_parts(task, optimizer, clip, batch, card):
+    """The CIF step at bench.py's shape split into its parts, each ended
+    by a synchronise: the encoder, CIF (α predictor and the frame loop,
+    Σα rescaled to U), the Projector with CE and MAE, the backward, the
+    clipping and AdamW; medians of 3 after a warm-up, the peak memory,
+    and one profiled step of the Trainer's own (`step_losses` →
+    take_step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.optim import clip_by_global_norm_
+    from speech2text_torch.train.step import take_step
+    model = task.model
+    pcm, pcm_lens, labels, lab_lens = batch
+    tb = {"pcm": pcm, "pcm_length": pcm_lens, "label": labels,
+          "label_length": lab_lens}
+    feats, feat_lens = task.featurize(tb)
+    gen = torch.Generator("cuda").manual_seed(SEED + 51)
+    sync = torch.cuda.synchronize
+    names = ("encoder", "cif", "projector_ce_mae", "backward", "optimizer")
+    times = {k: [] for k in names}
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(4):
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        enc, enc_lens = model.encoder(feats, feat_lens, training=True,
+                                      generator=gen)
+        sync()
+        marks.append(time.perf_counter())
+        embeds, pred, counts = model.cif(enc, enc_lens, lab_lens)
+        sync()
+        marks.append(time.perf_counter())
+        logits, _ = model.decoder(embeds, counts, training=True,
+                                  generator=gen)
+        ce = task.ce(logits, tb)
+        mae = task.mae_loss({"pred_token_counts": pred,
+                             "true_token_counts": lab_lens})
+        loss = ce + task.mae_weight * mae
+        sync()
+        marks.append(time.perf_counter())
+        optimizer.zero_grad()
+        loss.backward()
+        sync()
+        marks.append(time.perf_counter())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, clip, torch.nn.utils.get_total_norm(grads))
+        optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        if rep:
+            for k, a, b in zip(names, marks, marks[1:]):
+                times[k].append(b - a)
+        assert math.isfinite(loss.item()), f"cif step: loss {loss.item()}"
+        del enc, embeds, logits, loss
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    total = sum(med.values())
+    fired = int(counts.sum())
+    gens = tuple(torch.Generator(d).manual_seed(SEED + 52)
+                 for d in ("cuda", "cuda", "cpu"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = take_step(model, task.step_losses(tb, 0, gens), optimizer,
+                        clip)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    assert all(math.isfinite(float(v)) for v in out.values()), out
+    rows, busy, spans = profile_summary(prof, FAM_SPANS)
+    log(f"cif train step (B={pcm.shape[0]} x 2-{TRAIN_SECS} s, U <= "
+        f"{labels.shape[1]}, T' = {int(enc_lens.max())} CIF frames, {fired} "
+        f"fires; median ms of 3, synchronised): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med.items())
+        + f"; sum {total:.2f} ms ({pcm.shape[0] / total * 1e3:.2f} utt/s), "
+        f"peak memory {peak / 2**30:.2f} GiB; profiled Trainer step: wall "
+        f"{wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}"
+        f"%), {sum(r[2] for r in rows)} device ops; host time of its spans "
+        + ", ".join(f"{k} {spans.get(k, float('nan')):.2f} ms"
+                    for k in FAM_SPANS), card)
+    for key, ms, n in rows[:6]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
+    return {"B": int(pcm.shape[0]), "T_out": int(enc_lens.max()),
+            "U": int(labels.shape[1]), "fires": fired, "parts_ms": med,
+            "sum_ms": total, "cif_share": med["cif"] / total,
+            "peak_memory_bytes": peak, "profiled_wall_ms": wall,
+            "device_busy_ms": busy, "span_host_ms": spans,
+            "top_device_ops": rows[:20]}
+
+
+def ssl_batch(rng, B, secs):
+    """B utterances of `secs` s of noise and a noise batch of 3-9 s, on
+    the card, as the training pipeline hands them over (int16)."""
+    def q(x):
+        return torch.from_numpy(np.clip(np.round(x * 32768), -32768, 32767)
+                                .astype(np.int16)).cuda()
+    N, Nn = secs * SR, 9 * SR
+    pcm = 0.1 * rng.standard_normal((B, N))
+    nlens = rng.integers(3 * SR, Nn + 1, B)
+    noise = 0.1 * rng.standard_normal((B, Nn))
+    noise[np.arange(Nn)[None] >= nlens[:, None]] = 0.0
+    return {"pcm": q(pcm), "pcm_length": torch.full(
+        (B,), N, dtype=torch.int32, device="cuda"),
+        "noise_pcm": q(noise),
+        "noise_length": torch.from_numpy(nlens.astype(np.int32)).cuda()}
+
+
+def ssl_step_parts(task, optimizer, clip, card):
+    """The SSL step at B=SSL_B x SSL_SECS s split into its parts, each
+    ended by a synchronise: the raw featurize, the augmented featurize,
+    the quantizer's labels and the masking, the encoder, the logits with
+    the codebooks' CE losses, the backward, the clipping and AdamW;
+    medians of 3 after a warm-up, the peak memory (reckoned beforehand
+    from the logits), one profiled step of the Trainer's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.optim import clip_by_global_norm_
+    from speech2text_torch.train.step import take_step
+    model, brq = task.model, task.best_rq
+    batch = ssl_batch(np.random.default_rng(SEED + 61), SSL_B, SSL_SECS)
+    gen = torch.Generator("cuda").manual_seed(SEED + 61)
+    n, K = brq.cfg.num_codebooks, brq.cfg.codebook_size
+    frames = (SSL_SECS * SR - 400) // 160 + 1          # snip_edges, 25/10 ms
+    T_out = int(model.encoder.ConvSubsampling_0.output_lengths(
+        torch.tensor([frames]))[0])
+    logits_gb = n * SSL_B * T_out * K * 4 / 1e9
+    log(f"ssl step at B={SSL_B} x {SSL_SECS} s: logits ({n}, {SSL_B}, "
+        f"{T_out}, {K}) f32 = {logits_gb:.2f} GB; kept for the backward "
+        f"with their log-softmax and their gradient, about "
+        f"{3 * logits_gb:.1f} GB at the peak; the label distances one "
+        f"codebook at a time, {logits_gb / n:.2f} GB", card)
+    sync = torch.cuda.synchronize
+    names = ("featurize_raw", "featurize_augmented", "labels_mask",
+             "encoder", "logits_ce", "backward", "optimizer")
+    times = {k: [] for k in names}
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(4):
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        raw, lens = task.featurize(batch, training=False)
+        sync()
+        marks.append(time.perf_counter())
+        auged, _ = task.featurize(batch, gen, training=True)
+        sync()
+        marks.append(time.perf_counter())
+        masked, labels, mask2, lens2 = brq(raw, auged, lens, gen)
+        sync()
+        marks.append(time.perf_counter())
+        enc, enc_lens = model.encoder(masked, lens, training=True,
+                                      generator=gen)
+        sync()
+        marks.append(time.perf_counter())
+        out = task.losses(model.logits(enc), enc_lens, labels, mask2, lens2,
+                          True)
+        sync()
+        marks.append(time.perf_counter())
+        optimizer.zero_grad()
+        out["loss"].backward()
+        sync()
+        marks.append(time.perf_counter())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, clip, torch.nn.utils.get_total_norm(grads))
+        optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        if rep:
+            for k, a, b in zip(names, marks, marks[1:]):
+                times[k].append(b - a)
+        res = {k: float(v) for k, v in out.items()}
+        assert all(math.isfinite(v) for v in res.values()), res
+        del raw, auged, masked, enc, out
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    total = sum(med.values())
+    gens = tuple(torch.Generator(d).manual_seed(SEED + 62)
+                 for d in ("cuda", "cuda", "cpu"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_out = take_step(model, task.step_losses(batch, 0, gens),
+                             optimizer, clip)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    assert all(math.isfinite(float(v)) for v in step_out.values()), step_out
+    rows, busy, spans = profile_summary(prof, FAM_SPANS)
+    log(f"ssl train step (B={SSL_B} x {SSL_SECS} s, {n} codebooks x {K}; "
+        f"median ms of 3, synchronised): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med.items())
+        + f"; sum {total:.2f} ms ({SSL_B / total * 1e3:.2f} utt/s), peak "
+        f"memory {peak / 2**30:.2f} GiB; loss {res['loss']:.4f}, acc "
+        f"{res['acc']:.4f}, mask_rate {res['mask_rate']:.4f}; profiled "
+        f"Trainer step: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {sum(r[2] for r in rows)} device ops",
+        card)
+    for key, ms, cnt in rows[:6]:
+        log(f"  {ms:9.3f} ms  x{cnt:<6d} {key[:90]}", card)
+    return {"B": SSL_B, "seconds": SSL_SECS, "logits_gb": logits_gb,
+            "parts_ms": med, "sum_ms": total, "peak_memory_bytes": peak,
+            "losses": res, "profiled_wall_ms": wall, "device_busy_ms": busy,
+            "span_host_ms": spans, "top_device_ops": rows[:20]}
+
+
+def ssl_finetune(card, tmp, corpus, ssl_ckpt, ssl_encoder):
+    """conformer_ctc.yaml at the SSL encoder's width and depth, finetuned
+    from the SSL checkpoint `ssl_ckpt`: every encoder tensor copied,
+    `logits_layer` not; two steps and an evaluation."""
+    from speech2text_torch import build_task
+    overrides = [f"encoder.config.{k}={v}" for k, v in ssl_encoder.items()
+                 if k in ("input_dim", "ffn_dim", "num_layers", "output_dim",
+                          "num_heads")]
+    argv = recipe_argv(CTC_CFG, f"{tmp}/ssl_finetune", tmp, corpus,
+                       f"finetune.base_model={ssl_ckpt}",
+                       f"decoder.config.input_dim={ssl_encoder['output_dim']}",
+                       "trainer.val_check_interval=2",
+                       "trainer.log_interval=1", *overrides)
+    trainer, kw = build_task.prepare(argv + ["--max_steps", "2"])
+    base = kw["finetune_state"]
+    encoder = [k for k in base if k.startswith("encoder.")]
+    assert set(base) - set(encoder) == {"logits_layer.weight",
+                                        "logits_layer.bias"}, sorted(base)
+    trainer.init_state(finetune_state=base)
+    live = trainer.task.model.state_dict()
+    want = [k for k in live if k.startswith("encoder.")]
+    assert trainer.finetune_copied == len(encoder) == len(want), \
+        (trainer.finetune_copied, len(encoder), len(want))
+    assert all(torch.equal(live[k].cpu(), base[k]) for k in encoder)
+    assert not any(k.startswith("logits_layer") for k in live)
+    result = trainer.fit(**kw)
+    trainer.close()
+    assert _finite_record(result, ("val_loss", "wer")), result
+    log(f"ssl -> ctc finetune: {trainer.finetune_copied} encoder tensors "
+        f"copied of the SSL checkpoint's {len(base)} (logits_layer not), "
+        f"equal to the CTC model's {len(want)} encoder tensors; 2 steps, "
+        f"eval {result}", card)
+    return {"copied": trainer.finetune_copied, "base_tensors": len(base),
+            "ctc_encoder_tensors": len(want), "eval": result}
+
+
+def lm_fusion_checks(card, tmp, trained, lm_dir, lm_dims):
+    """Phase 15 (c): the trained LM (averaged by acc) fused into phase
+    11's beam + LM decode of the flagship test set through inference's
+    main, and an f32 beam + LM request through RnntServer on seeded
+    flagship weights equal on the card and the CPU."""
+    from speech2text_torch.config import load_config
+    from speech2text_torch.serve import RnntServer
+    from speech2text_torch.train.checkpoint import average_checkpoints
+    train_cfg = os.path.join(trained["workdir"], os.path.basename(TRAIN_CFG))
+    fusion = [f"decoding.config.lm_fusion.checkpoint_dir={lm_dir}",
+              f"decoding.config.lm_fusion.lm_weight={LM_WEIGHT}"] + [
+        f"decoding.config.lm_fusion.lm_config.{k}={v}"
+        for k, v in lm_dims.items()]
+    argv = ["--inference_config", BEAM_CFG,
+            "--override", f"task.train_config={train_cfg}",
+            "--override", f"task.export_path={tmp}/infer/beam_trained_lm",
+            "--override",
+            f"testset.test_data={trained['corpus']['eval_data']}"]
+    for ov in fusion:
+        argv += ["--override", ov]
+    run = run_inference("beam+trained lm", argv, card, RUN_LAYERS)
+    task = run["task"]
+    want = average_checkpoints(lm_dir, best_k=1, monitor="acc", mode="max")
+    assert task.lm is not None and all(
+        torch.equal(v.cpu(), want[k]) for k, v in task.lm.state_dict().items())
+    del run, task
+    torch.cuda.empty_cache()
+
+    cfg32 = load_config(BEAM_CFG)
+    train32 = load_config(train_cfg)
+    train32["encoder"]["config"]["dtype"] = "float32"
+    cfg32["task"]["train_config"] = train32
+    cfg32["decoding"].setdefault("config", {})["lm_fusion"] = {
+        "checkpoint_dir": lm_dir, "lm_weight": LM_WEIGHT,
+        "lm_config": dict(lm_dims)}
+    pcm, lens = requests(np.random.default_rng(SEED + 71), 1, 4, 2, 6)[0]
+    dev_out = []
+    for dev in ("cuda", "cpu"):
+        server = RnntServer(cfg32, device=dev, seed=SEED + 72)
+        assert server.lm is not None
+        dev_out.append(server.transcribe(pcm, lens))
+    (tg, cg), (tc, cc) = dev_out
+    assert torch.equal(cg.cpu(), cc) and torch.equal(tg.cpu(), tc), \
+        "f32 beam + trained LM tokens differ between card and CPU"
+    assert int(cc.sum()) > 0, "beam + trained LM: no token emitted"
+    log(f"beam + trained LM: f32 W=4 B=4 2-6 s on seeded flagship weights, "
+        f"{int(cc.sum())} tokens identical on the card and the CPU", card)
+    return int(cc.sum())
+
+
+def phase_task_families(card, report, tmp, trained):
+    """Phase 15: the CIF, SSL (BEST-RQ) and NNLM families on phase 10's
+    corpus: (a) conformer_cif.yaml through build_task with a bitwise
+    resume, cif_greedy_search.yaml on its checkpoints, f32 tokens on
+    seeded weights card = CPU, its step at bench.py's shape in parts;
+    (b) conformer_ssl.yaml through build_task with a resume, its step at
+    B=60 x 10 s in parts, the SSL -> CTC finetune; (c) rnn_lm.yaml through
+    build_task with a bitwise resume, its checkpoint fused into phase
+    11's beam + LM decode."""
+    from speech2text_torch.config import load_config
+    from speech2text_torch.tasks.cif import CifModel, CifTask
+    from speech2text_torch.tasks.nnlm import NnLmTask
+    from speech2text_torch.tasks.ssl import SslTask
+    t_phase = time.perf_counter()
+    out = {}
+    corpus = trained["corpus"]
+    spm = load_config(os.path.join(trained["workdir"], os.path.basename(
+        TRAIN_CFG)))["tokenizer"]["config"]["spm_model"]
+
+    def argv_of(cfg, steps, *extra):
+        return recipe_argv(cfg, f"{tmp}/families", tmp, corpus,
+                           f"trainer.log_interval={CONF_LOG_EVERY}",
+                           f"trainer.val_check_interval={steps}", *extra)
+
+    # (a) CIF: build_task, resume, inference, card = CPU, the step's parts
+    argv = argv_of(CIF_CFG, CIF_STEPS)
+    trainer, rec = conformer_train_run(card, "cif", CIF_CFG, argv, CIF_STEPS,
+                                       CIF_STEPS, CIF_KEYS)
+    task = trainer.task
+    assert isinstance(task, CifTask) and trainer.clip == 5.0
+    at_width(task.model.encoder.config, CIF_CFG)
+    rec["resume_eval"] = fam_resume(card, "cif", argv, CIF_STEPS)
+    cif_train_cfg = os.path.join(trainer.workdir, os.path.basename(CIF_CFG))
+    rng = np.random.default_rng(SEED + 51)
+    pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
+                                            TRAIN_U, 128)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (pcm, lens, labels, lab_lens))
+    rec["step_parts"] = cif_step_parts(task, trainer.optimizer, trainer.clip,
+                                       batch, card)
+    out["cif_train"] = rec
+    del trainer, task, batch
+    torch.cuda.empty_cache()
+    run, cif_worst = conformer_inference(
+        card, "cif_greedy", recipe_infer_argv(
+            CIF_INFER_CFG, f"{tmp}/families_infer/cif", cif_train_cfg,
+            corpus))
+    task, dev = run["task"], run["device"]
+    assert isinstance(task, CifTask)
+    batches = device_batches(task, dev)
+    seeded = CifModel.from_config(run["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(SEED + 53))
+    task.model.load_state_dict(seeded.state_dict())
+    n_tok, cases = cif_card_cpu(task, seeded.eval(), batches, card)
+    log(f"cif_greedy_search: corpus WER {run['wer']:.4f}, "
+        f"{run['batches']} test batches in {run['wall_s']:.2f} s; f32 tokens "
+        f"on seeded weights identical on the card and the CPU over "
+        f"{CONF_CPU_BATCHES} test batches: {n_tok} tokens compared, "
+        f"{len(cases)} utterances at a fire edge", card)
+    out["cif_decode"] = {"wer": run["wer"], "wall_s": run["wall_s"],
+                         "launches": run["launches"],
+                         "batches": run["batches"], "card_cpu_tokens": n_tok,
+                         "fire_edge_cases": cases}
+    cif_infer = run["launches"]
+    del run, task, seeded, batches
+    torch.cuda.empty_cache()
+
+    # (b) SSL: build_task (3 B2 per step), resume, the step's parts, the
+    # finetune chain
+    argv = argv_of(SSL_CFG, SSL_STEPS)
+    trainer, rec = conformer_train_run(
+        card, "ssl", SSL_CFG, argv, SSL_STEPS, SSL_STEPS, SSL_KEYS,
+        eval_keys=("val_loss", "acc"), fbank_per_step=3, vocab=None)
+    task = trainer.task
+    brq = load_config(SSL_CFG)["ssl"]["best_rq"]
+    assert isinstance(task, SslTask) and tuple(
+        task.best_rq.codebooks.shape) == (brq["num_codebooks"],
+                                          brq["codebook_size"],
+                                          brq["codebook_dim"])
+    at_width(task.model.encoder.config, SSL_CFG)
+    assert (trainer.ckpt.monitor, trainer.ckpt.mode) == ("acc", "max")
+    assert all(set(m) == {"val_loss", "acc"} for m in rec["evals"].values())
+    rec["resume_eval"] = fam_resume(card, "ssl", argv, SSL_STEPS)
+    rec["step_parts"] = ssl_step_parts(task, trainer.optimizer, trainer.clip,
+                                       card)
+    ssl_ckpt = trainer.ckpt.path(SSL_STEPS)
+    ssl_encoder = dataclasses.asdict(task.model.encoder.config)
+    out["ssl_train"] = rec
+    del trainer, task
+    torch.cuda.empty_cache()
+    out["ssl_finetune"] = ssl_finetune(card, tmp, corpus, ssl_ckpt,
+                                       ssl_encoder)
+    torch.cuda.empty_cache()
+
+    # (c) NNLM: build_task (no B2), resume, fusion into phase 11's decode
+    lm_dims = load_config(LM_CFG)["lm"]["config"]
+    argv = recipe_argv(LM_CFG, f"{tmp}/families", tmp, corpus,
+                       f"trainer.log_interval={CONF_LOG_EVERY}",
+                       f"trainer.val_check_interval={LM_VAL_EVERY}",
+                       f"tokenizer.config.spm_model={spm}",
+                       "tokenizer.apply_train=false")
+    trainer, rec = conformer_train_run(
+        card, "rnn_lm", LM_CFG, argv, LM_STEPS, LM_VAL_EVERY, LM_KEYS,
+        eval_keys=("val_loss", "acc"), fbank_per_step=0,
+        fbank_per_eval_batch=0)
+    assert isinstance(trainer.task, NnLmTask) and trainer.clip == 5.0
+    assert all(set(m) == {"val_loss", "acc"} for m in rec["evals"].values())
+    tokens_s = [r["frames_per_sec"] for r in rec["metrics_lines"]]
+    log(f"rnn_lm ({lm_dims}): {rec['median_ms']:.2f} ms per step, tokens/s "
+        f"{[round(x, 1) for x in tokens_s]}", card)
+    rec["tokens_per_s"] = tokens_s
+    rec["resume_eval"] = fam_resume(card, "rnn_lm", argv, LM_STEPS)
+    lm_dir = trainer.ckpt.directory
+    out["lm_train"] = rec
+    del trainer
+    out["lm_fusion_card_cpu_tokens"] = lm_fusion_checks(card, tmp, trained,
+                                                        lm_dir, lm_dims)
+    torch.cuda.empty_cache()
+
+    runs = {"cif": out["cif_train"], "ssl": out["ssl_train"],
+            "nnlm": out["lm_train"]}
+    worst = max([r["fbank_max_abs_err"] for r in runs.values()]
+                + [cif_worst])
+    wall = time.perf_counter() - t_phase
+    log(f"task families phase: {wall:.1f} s; launches B1 0; B2 cif "
+        f"{runs['cif']['launches']['fbank']} + {cif_infer['fbank']} in "
+        f"inference, ssl {runs['ssl']['launches']['fbank']}, nnlm 0; every "
+        f"B2 call within check_mel (worst log error {worst:.3g})", card)
+    out["wall_s"] = wall
+    report["task_families"] = out
+
+    steps = {"cif": CIF_STEPS, "ssl": SSL_STEPS, "nnlm": LM_STEPS}
+
+    def record(name, kernel):
+        """A family's launches (its build_task run, and CIF's inference
+        run), the launches per training step, measured (less the eval
+        batches' B2), and for B2 the calls checked and the worst error."""
+        r = runs[name]
+        evals = len(r["eval_s"]) * r["eval_batches"] * (name != "nnlm")
+        rec = {"launches": r["launches"][kernel],
+               "launches_per_step": (r["launches"][kernel] - (
+                   kernel == "fbank") * evals) / steps[name]}
+        if kernel == "fbank":
+            rec.update(calls_checked=r["fbank_calls_checked"],
+                       max_abs_err=r["fbank_max_abs_err"])
+        if name == "cif":
+            rec["launches"] += cif_infer[kernel]
+            rec["launches_per_test_batch"] = \
+                cif_infer[kernel] / out["cif_decode"]["batches"]
+            if kernel == "fbank":
+                rec["calls_checked"] += cif_infer[kernel]
+                rec["max_abs_err"] = max(rec["max_abs_err"], cif_worst)
+        return rec
+
+    return {kernel: {name: record(name, kernel) for name in runs}
+            for kernel in ("attn_weights", "fbank")}
+
+
 # ------------------------------------------------------------ compare
 def load_earlier(pkg_dir):
     """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
@@ -3108,6 +3682,7 @@ def main(argv):
     ap.add_argument("--compare-with", metavar="DIR", default=None,
                     help="an earlier speech2text_torch package to time "
                          "against this tree's kernels")
+
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3154,6 +3729,7 @@ def main(argv):
         stream = phase_stream(card, report, run)
         conformer = phase_conformer(card, report, tmp, run)
         family = phase_rnnt_family(card, report, tmp, run)
+        families = phase_task_families(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -3179,7 +3755,8 @@ def main(argv):
                         max_abs_err=infer_err["attn_weights"]),
              stream=stream["attn_weights"],
              conformer=conformer["attn_weights"],
-             rnnt_family=family["attn_weights"]),
+             rnnt_family=family["attn_weights"],
+             task_families=families["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -3194,7 +3771,8 @@ def main(argv):
                         launches_per_batch=infer_per_batch["fbank"],
                         max_abs_err=infer_err["fbank"]),
              stream=stream["fbank"], conformer=conformer["fbank"],
-             rnnt_family=family["fbank"]),
+             rnnt_family=family["fbank"],
+             task_families=families["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer", "rnnt_family") + (
@@ -3202,6 +3780,12 @@ def main(argv):
         for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"
+        fams = k["task_families"]
+        if k["name"] == "fbank":
+            assert fams["cif"]["launches"] > 0 and \
+                fams["ssl"]["launches"] > 0, fams
+        assert k["name"] == "fbank" or not any(
+            r["launches"] for r in fams.values()), fams
         for path in (k, k["serve"]):
             assert path["launches"] > 0, \
                 f"{k['name']} never launched on a path"

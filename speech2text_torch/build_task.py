@@ -5,12 +5,15 @@
       [--override a.b.c=value ...] [--max_steps N] [--device cpu]
 
 YAML → the task of `task.type` (`Pruned_Rnnt`, `Rnnt`,
-`CTC_Hybrid_Rnnt`: tasks/rnnt.py; `CTC`: tasks/ctc.py:CtcTask; the other
-types raise NotImplementedError) → Trainer.fit, in `<task.export_path>/<task.name>`:
+`CTC_Hybrid_Rnnt`: tasks/rnnt.py; `CTC`: tasks/ctc.py; `CIF`:
+tasks/cif.py; `SSL`: tasks/ssl.py; `NNLM`: tasks/nnlm.py) → Trainer.fit,
+in `<task.export_path>/<task.name>`:
 seeds, `run.log`, the subword model trained from the train manifest
 (tools/spm_train.py), a backup of the resolved config (written with
 config.dumps, read back by config.load_config), finetuning from a port
-checkpoint file or an averaged top-k directory (`finetune.base_model`),
+checkpoint file or an averaged top-k directory (`finetune.base_model`:
+the tensors whose name and shape match are copied, such as an SSL
+checkpoint's encoder into a CTC task; the count is logged),
 and resume from the run's latest checkpoint or from `resume` (also
 after the host-RSS watchdog's exec-restart, `trainer.max_rss_gb`).
 

@@ -2,7 +2,9 @@
 
 Input: the `params` tree of speech2text_tpu's RnntModel (top-level
 `encoder`, `predictor`, `joiner`, and `decoder` when the head has
-weights) or CtcModel (`encoder`, `decoder`) with numpy leaves, e.g.
+weights), CtcModel (`encoder`, `decoder`), CifModel (`encoder`, `cif`
+with `alpha_conv` and `alpha_proj`, `decoder`), SslModel (`encoder`,
+`logits_layer`) or RnnLm, with numpy leaves, e.g.
 `jax.tree.map(np.asarray, params)`. Layout rules (the inverse of
 tools/convert_zipformer_ref.py's):
 
@@ -14,12 +16,14 @@ tools/convert_zipformer_ref.py's):
 | Embed embedding (V, E)            | weight (V, E), unchanged   |
 | LayerNorm scale (D,)              | weight (D,), unchanged     |
 
-A depthwise Conv1d (flax `feature_group_count = D`) has the kernel (K, 1,
-D), hence the weight (D, 1, K). Module names map one to one, flax's
-auto-generated names (`ConformerBlock_3`, `Dense_0`, ...) included,
-except `stack{i}` → `stacks.{i}`, `layer{i}` → `layers.{i}` and the
-feedforward's `in` → `in_`. Unknown keys, missing keys, shape mismatches
-and the `scan_layers` layout (a stacked `layers` subtree) raise.
+A depthwise Conv1d (flax `feature_group_count = D`, such as the
+Conformer's conv module and CIF's `alpha_conv`) has the kernel (K, 1,
+D), hence the weight (D, 1, K); CIF's `alpha_proj` is a Dense (D, 1) →
+(1, D). Module names map one to one, flax's auto-generated names
+(`ConformerBlock_3`, `Dense_0`, ...) included, except `stack{i}` →
+`stacks.{i}`, `layer{i}` → `layers.{i}` and the feedforward's `in` →
+`in_`. Unknown keys, missing keys, shape mismatches and the
+`scan_layers` layout (a stacked `layers` subtree) raise.
 
 The LSTM layers of models/rnn_lm.py (flax `rnns_{i}/cell`, an
 OptimizedLSTMCell with kernels `ii, if, ig, io` (in, H) without bias and

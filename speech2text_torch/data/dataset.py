@@ -14,8 +14,11 @@ The arrays equal the JAX package's bit for bit: the same batcher, the same
 per-(seed, shard, batch index) numpy generator for speed perturbation and
 noise draws, and the same resampler. With `pin_memory` set, the prefetch
 thread hands each array over as a torch tensor in pinned host memory, so
-the trainer copies it to the card without blocking. The NNLM text pipeline
-(`LmPipeline`) is not ported.
+the trainer copies it to the card without blocking.
+
+`LmPipeline` is the NNLM task's text pipeline: rows <sos> tokens <eos>
+(B, max_len + 2) with their lengths, in a seeded permutation per epoch,
+equal to the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -286,3 +289,91 @@ class AsrPipeline:
 
     def batches_per_epoch(self) -> int:
         return self.batcher.batches_per_epoch()
+
+
+class LmPipeline:
+    """The NNLM text pipeline: the manifest's texts tokenized at load
+    time and kept when they have `min_tokens` to `max_tokens` tokens;
+    batches {text (B, max_len + 2) int32 = <sos> tokens <eos> zero-padded,
+    text_length (B,) int32 = tokens + 2}, max_len the longest row + 1
+    rounded up to `pad_multiple`. Each epoch is a permutation from
+    `default_rng(seed + epoch)` cut into full batches; evaluation also
+    keeps the rest, topped up with repeats of its first row, and runs one
+    epoch; training runs forever and resumes at a global batch index
+    (`skip_batches`). With shards, every shard takes its slice of each
+    global batch. The task shifts the rows for teacher forcing."""
+
+    def __init__(self, manifest_path: str, tokenizer: Tokenizer,
+                 batch_size: int = 32, min_tokens: int = 1,
+                 max_tokens: int = 256, seed: int = 17,
+                 shard_index: int = 0, num_shards: int = 1,
+                 training: bool = True, pad_multiple: int = 8,
+                 pin_memory: bool = False):
+        self.seqs = []
+        for e in load_manifest(manifest_path):
+            ids = tokenizer.encode(e["text"])
+            if min_tokens <= len(ids) <= max_tokens:
+                self.seqs.append(ids)
+        if not self.seqs:
+            raise ValueError(f"{manifest_path}: no text of {min_tokens}-"
+                             f"{max_tokens} tokens")
+        self.batch_size = batch_size
+        self.training = training
+        self.pin_memory = pin_memory
+        self._seed = seed
+        self._start_batch = 0
+        self._shard = shard_index
+        self._num_shards = num_shards
+        longest = max(len(s) for s in self.seqs) + 1
+        self.max_len = -(-longest // pad_multiple) * pad_multiple
+        self.sos_eos = tokenizer.sos_eos_id
+
+    def _make_batch(self, idxs) -> Dict[str, Any]:
+        text = np.zeros((len(idxs), self.max_len + 2), np.int32)
+        lens = np.zeros((len(idxs),), np.int32)
+        for i, j in enumerate(idxs):
+            s = self.seqs[j]
+            text[i, 0] = self.sos_eos
+            text[i, 1:1 + len(s)] = s
+            text[i, 1 + len(s)] = self.sos_eos
+            lens[i] = len(s) + 2
+        batch = {"text": text, "text_length": lens}
+        return _pinned(batch) if self.pin_memory else batch
+
+    def batches_per_epoch(self) -> int:
+        return max(len(self._epoch_batches(0)), 1)
+
+    def _epoch_batches(self, epoch: int) -> List[np.ndarray]:
+        order = np.random.default_rng(self._seed + epoch).permutation(
+            len(self.seqs))
+        bs = self.batch_size
+        batches = [order[i:i + bs]
+                   for i in range(0, len(order) - bs + 1, bs)]
+        if not self.training:
+            rest = order[len(order) - len(order) % bs:]
+            if len(rest):
+                batches.append(np.asarray(
+                    list(rest) + [rest[0]] * (bs - len(rest))))
+        if self._num_shards > 1:
+            sharded = []
+            for idxs in batches:
+                m = len(idxs) // self._num_shards * self._num_shards
+                if m:
+                    sharded.append(idxs[self._shard:m:self._num_shards])
+            batches = sharded
+        return batches
+
+    def skip_batches(self, n: int) -> None:
+        """Resume training at global batch index `n`."""
+        self._start_batch = max(int(n), 0)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        epoch, skip = divmod(self._start_batch if self.training else 0,
+                             self.batches_per_epoch())
+        while True:
+            for idxs in self._epoch_batches(epoch)[skip:]:
+                yield self._make_batch(idxs)
+            if not self.training:
+                return
+            skip = 0
+            epoch += 1

@@ -1,7 +1,7 @@
 """Batched decoding (port of speech2text_tpu/decoding.py): CTC greedy and
 prefix beam search over log-probabilities, transducer greedy and beam
-search over encoder frames, and the decoder factory of a `metric` config
-section (`build_decoding`).
+search over encoder frames, the CIF task's per-position argmax, and the
+decoder factory of a `metric` config section (`build_decoding`).
 
 - CTC greedy (`ctc_greedy_reduce`): argmax per frame → repeats collapsed
   → blanks dropped, compacted to the front of each row.
@@ -469,6 +469,18 @@ class RnntBeamDecoding:
         return best_tokens.to(torch.int32), best_counts.to(torch.int32)
 
 
+# ------------------------------------------------------------------- CIF
+class CifGreedyDecoding:
+    """Non-autoregressive decoding of the CIF task: the argmax of each
+    fired position (the first of equal maxima), `token_lens` tokens."""
+
+    @torch.no_grad()
+    def decode(self, log_probs: torch.Tensor, token_lens: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (log_probs.argmax(dim=-1).to(torch.int32),
+                token_lens.to(torch.int32))
+
+
 def build_decoding(metric: Dict[str, Any],
                    predictor_step: Optional[Callable] = None,
                    predictor_init_state: Optional[Callable] = None,
@@ -482,8 +494,9 @@ def build_decoding(metric: Dict[str, Any],
     with the predictor and joiner steps, `rnnt_greedy_search` with
     `max_token_step`, and `rnnt_beam_search` with `beam_size` (default
     4), `cutoff_top_k` (default 4) and the optional fusion LM
-    (tasks/rnnt.py:BaseRnntTask). `ctc_lexicon_beam_search` (the C++
-    runtime's decoder) and any other method raise NotImplementedError."""
+    (tasks/rnnt.py:BaseRnntTask); over the CIF task's log-probs,
+    `cif_greedy_search`. `ctc_lexicon_beam_search` (the C++ runtime's
+    decoder) and any other method raise NotImplementedError."""
     method = metric.get("decode_method", "rnnt_greedy_search")
     if method == "ctc_greedy_search":
         return CtcGreedyDecoding()
@@ -502,6 +515,9 @@ def build_decoding(metric: Dict[str, Any],
             cutoff_top_k=int(metric.get("cutoff_top_k", 4)),
             lm_step=lm_step, lm_init_state=lm_init_state,
             lm_weight=lm_weight)
+    if method == "cif_greedy_search":
+        return CifGreedyDecoding()
     raise NotImplementedError(f"decode method {method!r} is not ported "
                               f"(ctc_greedy_search, ctc_prefix_beam_search,"
-                              f" rnnt_greedy_search, rnnt_beam_search)")
+                              f" rnnt_greedy_search, rnnt_beam_search, "
+                              f"cif_greedy_search)")

@@ -17,11 +17,13 @@ and the corpus WER, in inference.py's format.
 
 Runs on `cuda` unless `--device cpu` or the YAML's `task.platform: cpu`
 asks for the CPU; with no CUDA device and no such request it raises.
-`pruned_rnnt_inference`, `rnnt_inference`, `ctc_hybrid_rnnt_inference`
-(decoded by the transducer, as JAX's) and `ctc_inference` are ported (the
-`decoding` section's type and config, such as `beam_size` and
-`cand_size`, go into the training config's `metric`); `cif_inference`,
-`module_export` and `onnx_export` raise NotImplementedError.
+All five of JAX's decode entries are ported: `pruned_rnnt_inference`,
+`rnnt_inference`, `ctc_hybrid_rnnt_inference` (decoded by the
+transducer, as JAX's), `ctc_inference` and `cif_inference` (the CIF
+task's free pass, `cif_greedy_search`); the `decoding` section's type and
+config, such as `beam_size` and `cand_size`, go into the training
+config's `metric`. `module_export` and `onnx_export` raise
+NotImplementedError.
 """
 
 from __future__ import annotations

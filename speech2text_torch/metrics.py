@@ -1,12 +1,14 @@
 """WER/CER metrics for evaluation (port of speech2text_tpu/metrics.py):
-Levenshtein distance, corpus-level WER over (hyp, ref) pairs, and
+Levenshtein distance, corpus-level WER over (hyp, ref) pairs,
 `AsrMetric`, which accumulates an eval epoch and logs a random sample
-pair."""
+pair, and `masked_topk_accuracy`, the SSL and NNLM tasks' metric."""
 
 from __future__ import annotations
 
 import random
 from typing import Iterable, List, Sequence, Tuple
+
+import torch
 
 from .utils.logging import get_logger
 
@@ -84,3 +86,19 @@ class AsrMetric:
     @property
     def num_utts(self) -> int:
         return self._count
+
+
+def masked_topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """The share of masked positions whose label is among the k largest
+    logits; logits (..., C), labels (...), mask (...) bool or float. Equal
+    logits rank by index, the lower first (lax.top_k's order): for k = 1
+    the first maximum, else a stable descending sort."""
+    if k == 1:
+        idx = logits.argmax(dim=-1, keepdim=True)
+    else:
+        idx = torch.sort(logits, dim=-1, descending=True,
+                         stable=True)[1][..., :k]
+    hit = (idx == labels[..., None].long()).any(dim=-1).float()
+    m = mask.float()
+    return (hit * m).sum() / m.sum().clamp(min=1.0)

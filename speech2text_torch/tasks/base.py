@@ -3,7 +3,8 @@ tokenizer, the data pipelines and the device-side featurization
 (add_noise → fbank → mix_feats → CMVN → SpecAugment).
 
 `Featurizer` holds the fbank frontend, CMVN and the augmentation config
-of a training YAML; `AsrTaskBase` adds the tokenizer and the pipelines.
+of a training YAML; `AsrTaskBase` adds the tokenizer, the pipelines and
+the training step's inputs (`step_losses`).
 `featurize(batch, generator, training)` draws every augmentation value
 from `generator` (on the batch's device) before it computes, in a fixed
 order (add_noise, mix_feats, SpecAugment, then dither inside the
@@ -17,7 +18,7 @@ not ported.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -148,6 +149,20 @@ class AsrTaskBase(Featurizer):
     def make_test_pipeline(self) -> AsrPipeline:
         return AsrPipeline(self.data_config.test_data, self.tokenizer,
                            self.data_config, training=False, keep_text=True)
+
+    def step_losses(self, batch: Batch, step: int,
+                    generators: Tuple[torch.Generator, ...]
+                    ) -> Callable[[], Dict[str, torch.Tensor]]:
+        """The training step of train/loop.py:Trainer on a device batch:
+        the training featurize (augmentation from the first of the step's
+        generators (augmentation, dropout, chunk)), then the closure
+        train/step.py:take_step runs, the task's `train_losses` at the
+        global `step` with dropout and the chunk from the other two. The
+        SSL and NNLM tasks override it."""
+        augment_gen, dropout_gen, chunk_gen = generators
+        feats, feat_lens = self.featurize(batch, augment_gen, training=True)
+        return lambda: self.train_losses(feats, feat_lens, batch,
+                                         dropout_gen, chunk_gen, step=step)
 
     @property
     def vocab_size(self) -> int:

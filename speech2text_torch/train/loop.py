@@ -1,16 +1,22 @@
 """The training loop (port of speech2text_tpu/train/loop.py:Trainer).
 
 `Trainer(task, config, workdir, seed, device)` trains a task (a
-transducer task of tasks/rnnt.py or a `CtcTask`) on one device: `cuda` unless the caller passes `device="cpu"` or the YAML
-sets `trainer.platform: cpu`; with no CUDA device and no such request it
-raises. `fit` takes steps until `max_steps` (or `max_epochs` epochs of the
-bucketed pipeline), evaluates and checkpoints every `val_check_interval`
-(a fraction of an epoch, or steps when > 1) and at the last step, and
-resumes from the latest checkpoint of `workdir/checkpoints` (or of
-`resume`) with the pipeline fast-forwarded to the restored step. The
-global step (0-based, the restored one after a resume) goes into the
-task's training losses, where the Zipformer2's training dynamics read
-their schedules.
+transducer task of tasks/rnnt.py, `CtcTask`, `CifTask`, `SslTask` or
+`NnLmTask`) on one device: `cuda` unless the caller passes
+`device="cpu"` or the YAML sets `trainer.platform: cpu`; with no CUDA
+device and no such request it raises. `fit` takes steps until
+`max_steps` (or `max_epochs` epochs of the bucketed pipeline), evaluates
+and checkpoints every `val_check_interval` (a fraction of an epoch, or
+steps when > 1) and at the last step, and resumes from the latest
+checkpoint of `workdir/checkpoints` (or of `resume`) with the pipeline
+fast-forwarded to the restored step. Checkpoints are ranked by the
+YAML's `monitor` and `mode` (`wer`, `min` for the ASR tasks; `acc`,
+`max` for SSL and NNLM). The task owns its step:
+`task.step_losses(batch, step, generators)` featurizes (once, twice for
+SSL, not at all for NNLM) and returns the losses closure that
+train/step.py:take_step runs. The global step (0-based, the restored one
+after a resume) goes into the task's training losses, where the
+Zipformer2's training dynamics read their schedules.
 
 The host-RSS watchdog (`trainer.max_rss_gb` > 0, the JAX loop's): every
 `log_interval` steps, when the process's current resident set exceeds
@@ -28,9 +34,10 @@ takes the same steps as one that was never stopped.
 No step reads a value back from the card: losses and `grad_norm` stay on
 the device and are read every `log_interval` steps, when a line with the
 JAX loop's keys (step, loss, lr, utts_per_sec, frames_per_sec, the
-task's losses (train_loss; simple_loss, pruned_loss and ctc_loss for the
-pruned task), grad_norm: the norm before clipping) and the mean data wait
-of the interval (data_wait_ms) goes to `metrics.jsonl` and TensorBoard.
+task's losses and metrics (train_loss; simple_loss, pruned_loss and
+ctc_loss for the pruned task; acc and mask_rate for SSL), grad_norm: the
+norm before clipping) and the mean data wait of the interval
+(data_wait_ms) goes to `metrics.jsonl` and TensorBoard.
 Batches arrive in pinned host memory (on `cuda`) and are copied without
 blocking. `next(train_iter)` is a `torch.profiler.record_function("data")`
 span, and `history` keeps per step the host clock at its end, its data
@@ -170,6 +177,7 @@ class Trainer:
         self._pin = self.device.type == "cuda"
         self.history: List[Dict[str, float]] = []
         self.last_eval: Dict[str, float] = {}
+        self.finetune_copied = 0
 
     def close(self) -> None:
         self._metrics_file.close()
@@ -185,8 +193,10 @@ class Trainer:
         the step to start from."""
         model = self.task.model
         if finetune_state is not None:
-            n = _merge_state(model, finetune_state)
-            log.info("loaded finetune base weights (%d tensors)", n)
+            self.finetune_copied = _merge_state(model, finetune_state)
+            log.info("loaded finetune base weights: %d of the base's %d "
+                     "tensors copied", self.finetune_copied,
+                     len(finetune_state))
         self.optimizer, self.schedule = OptimSetup(
             self.config["optim_setup"], model.named_parameters())
         restored = None
@@ -240,20 +250,16 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, Any], step: int
                    ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a device batch: the training featurize
-        (augmentation from the step's generator), then train/step.py:
-        take_step over the task's `train_losses` (dropout and the chunk
-        from the step's generators) with the config's clipping. Returns
-        the step's metrics (train_loss, the task's other losses,
-        grad_norm, frames) as 0-d tensors on the device. `step` is the
-        global step (0-based) the training dynamics read."""
+        """One optimizer step on a device batch: the task's
+        `step_losses` (featurize and the losses closure, drawing from the
+        step's generators), then train/step.py:take_step with the
+        config's clipping. Returns the step's metrics (train_loss, the
+        task's other losses and metrics, grad_norm, frames) as 0-d
+        tensors on the device. `step` is the global step (0-based) the
+        training dynamics read."""
         task = self.task
-        augment_gen, dropout_gen, chunk_gen = self.generators(step)
-        feats, feat_lens = task.featurize(batch, augment_gen, training=True)
         metrics = take_step(
-            task.model,
-            lambda: task.train_losses(feats, feat_lens, batch, dropout_gen,
-                                      chunk_gen, step=step),
+            task.model, task.step_losses(batch, step, self.generators(step)),
             self.optimizer, self.clip)
         metrics["train_loss"] = metrics.pop("loss")
         return metrics
@@ -282,7 +288,6 @@ class Trainer:
             log.info("data pipeline fast-forwarded to batch %d", step)
         log.info("training: %d steps (%d/epoch) on %s", max_steps,
                  steps_per_epoch, self.device)
-        hop = task.frontend.cfg.frame_shift
         t_last = time.time()
         utts, frames, waits = 0, 0, []
         metrics: Dict[str, torch.Tensor] = {}
@@ -294,9 +299,8 @@ class Trainer:
                     batch = next(train_iter)
                 wait = time.perf_counter() - t0
                 waits.append(wait)
-                utts += int(batch["pcm"].shape[0])
-                frames += int(np.asarray(batch["pcm_length"],
-                                         np.int64).sum()) // hop
+                n_utts, n_frames = self._counts(batch)
+                utts, frames = utts + n_utts, frames + n_frames
                 metrics = self.train_step(self.to_device(batch), step)
                 step += 1
                 rec = {"step": step, "end": time.perf_counter(),
@@ -318,6 +322,17 @@ class Trainer:
         finally:
             train_iter.close()
         return self.last_eval
+
+    def _counts(self, batch: Dict[str, Any]) -> Tuple[int, int]:
+        """The loop's counters of a host batch, as JAX's loop counts:
+        (utterances, fbank frames of the PCM at the frontend's hop), or
+        for a text batch (rows, tokens)."""
+        if "pcm_length" in batch:
+            hop = self.task.frontend.cfg.frame_shift
+            lens = batch["pcm_length"]
+            return len(lens), int(np.asarray(lens, np.int64).sum()) // hop
+        lens = batch["text_length"]
+        return len(lens), int(np.asarray(lens, np.int64).sum())
 
     def _rss_exit(self, step: int) -> None:
         """The watchdog's way out at `step`: checkpoint, flush, then
@@ -354,9 +369,9 @@ class Trainer:
 
     # ---------------------------------------------------------- evaluate
     def evaluate(self) -> Dict[str, float]:
-        """Validation losses (the mean over eval batches) and the WER of
-        the task's decoder
-        over one epoch of the eval pipeline."""
+        """Validation losses and metrics (the mean over eval batches) and,
+        for a task that decodes, the WER of its decoder, over one epoch
+        of the eval pipeline."""
         task = self.task
         pipe = task.make_eval_pipeline(pin_memory=self._pin)
         metric = AsrMetric()

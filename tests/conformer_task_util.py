@@ -1,9 +1,12 @@
 """Shared fixtures of the Conformer family's port tests
 (tests/test_torch_ctc_task.py, tests/test_torch_conformer_inference.py,
-tests/test_torch_rnnt_family.py, tests/test_torch_rnnt_family_inference.py):
-a synthetic corpus with its subword model, and the training configs of a
-tiny CTC, a tiny pruned RNN-T + CTC, a tiny RNN-T and a tiny CTC + RNN-T
-hybrid Conformer (LSTM predictor, full lattice) on it."""
+tests/test_torch_rnnt_family.py, tests/test_torch_rnnt_family_inference.py,
+tests/test_torch_cif.py, tests/test_torch_ssl.py, tests/test_torch_nnlm.py):
+a synthetic corpus with its subword model, the training configs of a
+tiny CTC, a tiny pruned RNN-T + CTC, a tiny RNN-T, a tiny CTC + RNN-T
+hybrid Conformer (LSTM predictor, full lattice), a tiny CIF, a tiny
+BEST-RQ SSL and a tiny RNN-LM on it, and the build_task overrides that
+shrink a Conformer YAML to those dims."""
 
 import json
 import os
@@ -123,6 +126,96 @@ def rnnt_config(corpus, workdir, hybrid=False):
     if not hybrid:
         cfg["decoder"] = {"model": "Identity", "config": {"dummy": -1}}
     return cfg
+
+
+def cif_config(corpus, workdir, max_tokens=16):
+    """conformer_cif.yaml's recipe at tiny dims: the Conformer, CIF of
+    `max_tokens` slots, a Projector head, CE with label smoothing 0.1 +
+    MAE, AdamW + Warmup with clipping 5.0."""
+    cfg = ctc_config(corpus, workdir)
+    cfg.update({
+        "task": dict(cfg["task"], type="CIF"),
+        "cif": {"config": {"input_dim": D, "conv_kernel": 3,
+                           "threshold": 1.0, "tail_threshold": 0.5,
+                           "max_tokens": max_tokens}},
+        "loss": {"model": "MaskedCELoss", "mae_weight": 1.0,
+                 "ce_config": {"label_smoothing": 0.1}},
+        "metric": {"decode_method": "cif_greedy_search"}})
+    return cfg
+
+
+BEST_RQ = {"stack_size": 4, "num_codebooks": 2, "codebook_size": 16,
+           "codebook_dim": 16, "distance": "euclidean",
+           "masking": {"mask_proportion": 0.5, "mean_span_length": 2,
+                       "span_distribution": "static"}}
+
+
+def ssl_config(corpus, workdir):
+    """conformer_ssl.yaml's recipe at tiny dims: the Conformer, BEST-RQ
+    with 2 codebooks of 16, masked CE, acc monitored."""
+    cfg = ctc_config(corpus, workdir)
+    cfg.pop("decoder")
+    cfg.update({
+        "task": dict(cfg["task"], type="SSL"),
+        "tokenizer": {"type": "char", "config": {}},
+        "ssl": {"best_rq": dict(BEST_RQ)},
+        "loss": {"model": "MaskedCELoss", "config": {},
+                 "loss_selection": "mask_loss"},
+        "metric": {"top_k": 1},
+        "callbacks": dict(cfg["callbacks"], model_chkpt_config={
+            "monitor": "acc", "mode": "max", "save_top_k": 2})})
+    return cfg
+
+
+LM_DIMS = {"embedding_dim": 16, "hidden_dim": 24, "num_layers": 2}
+
+
+def lm_config(corpus, workdir):
+    """rnn_lm.yaml's recipe at tiny dims on the corpus's transcripts."""
+    return {
+        "task": {"type": "NNLM", "name": os.path.basename(workdir),
+                 "export_path": os.path.dirname(workdir)},
+        "tokenizer": {"type": "subword",
+                      "config": {"spm_model": corpus["spm_model"]}},
+        "dataset": {"train_data": corpus["train_data"],
+                    "eval_data": corpus["eval_data"], "batch_size": 4},
+        "lm": {"config": dict(LM_DIMS)},
+        "loss": {"model": "MaskedKLDiv", "config": {"label_smoothing": 0.1}},
+        "metric": {"top_k": 1},
+        "optim_setup": {"optimizer": {"type": "AdamW",
+                                      "config": {"lr": 0.001}},
+                        "lr_scheduler": {"type": "Warmup",
+                                         "config": {"warmup_steps": 500}}},
+        "trainer": {"mesh": {"data": 1, "model": 1}, "log_interval": 1,
+                    "val_check_interval": 1000, "gradient_clip_val": 5.0},
+        "callbacks": {"model_chkpt_config": {"monitor": "acc", "mode": "max",
+                                             "save_top_k": 2},
+                      "global_cmvn": {"apply": False}},
+    }
+
+
+def tiny_recipe_argv(yaml_path, corpus, export_path, steps=2):
+    """build_task's argv for a Conformer recipe YAML on the corpus: tiny
+    encoder dims, one bucket, an evaluation and a checkpoint at the last
+    step, a metrics line every step."""
+    argv = ["--training_config", yaml_path, "--device", "cpu",
+            "--max_steps", str(steps),
+            "--override", f"task.export_path={export_path}",
+            "--override", "trainer.val_check_interval=" + str(steps),
+            "--override", "trainer.log_interval=1",
+            "--override", "dataset.bucket_sampler_config.num_bucket=1",
+            "--override", "dataset.bucket_sampler_config.volume_threshold=6",
+            "--override", "dataset.bucket_sampler_config.min_batch_size=3",
+            "--override", "dataset.batch_size=4",
+            "--override", "dataset.dur_max_filter=60.0",
+            "--override", f"encoder.config.input_dim={D}",
+            "--override", "encoder.config.ffn_dim=64",
+            "--override", "encoder.config.num_layers=1",
+            "--override", "encoder.config.depthwise_conv_kernel_size=7",
+            "--override", f"encoder.config.output_dim={D}"]
+    for key in ("train_data", "eval_data", "noise_data"):
+        argv += ["--override", f"dataset.{key}={corpus[key]}"]
+    return argv
 
 
 def metrics_lines(workdir):

@@ -29,7 +29,8 @@ from speech2text_tpu.models.predictor import StatelessPredictor as JPred
 from speech2text_tpu.models.rnn_lm import RnnLm as JLm
 from speech2text_tpu.models.rnn_lm import RnnLmConfig as JLmConfig
 from speech2text_torch.convert import flax_to_state_dict, to_flax
-from speech2text_torch.decoding import (NEG_INF, CtcGreedyDecoding,
+from speech2text_torch.decoding import (NEG_INF, CifGreedyDecoding,
+                                        CtcGreedyDecoding,
                                         CtcPrefixBeamDecoding,
                                         RnntBeamDecoding,
                                         RnntGreedyDecoding, build_decoding,
@@ -389,6 +390,8 @@ def test_build_decoding(tiny):
     assert isinstance(build_decoding(
         {"decode_method": "ctc_prefix_beam_search"}, *args),
         CtcPrefixBeamDecoding)
-    for method in ("cif_greedy_search", "ctc_lexicon_beam_search"):
-        with pytest.raises(NotImplementedError, match=method):
-            build_decoding({"decode_method": method}, *args)
+    # the CIF task's per-position argmax (tests/test_torch_cif.py)
+    assert isinstance(build_decoding({"decode_method": "cif_greedy_search"},
+                                     *args), CifGreedyDecoding)
+    with pytest.raises(NotImplementedError, match="ctc_lexicon_beam_search"):
+        build_decoding({"decode_method": "ctc_lexicon_beam_search"}, *args)

@@ -305,7 +305,7 @@ def test_unported_options_raise(setup, monkeypatch):
         # the full-lattice tasks refuse a pruned joiner
         with pytest.raises(ValueError, match="prune_range"):
             tinf.main(base + ["--override", ov])
-    for ov in ("task.type=cif_inference", "task.module_export=true",
+    for ov in ("task.module_export=true",
                "task.onnx_export=true", "decoding.config.int8=true",
                "decoding.type=ctc_greedy_search",
                "decoding.type=ctc_prefix_beam_search"):

@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.optim.adam, speech2text_torch.tasks.ctc, "
         "speech2text_torch.tasks.factory, speech2text_torch.ops.regularizers, "
         "speech2text_torch.models.predictor, speech2text_torch.ops.rnnt, "
-        "speech2text_torch.optim.setup, speech2text_torch.tasks.rnnt\n"
+        "speech2text_torch.optim.setup, speech2text_torch.tasks.rnnt, "
+        "speech2text_torch.tasks.cif, speech2text_torch.tasks.ssl, "
+        "speech2text_torch.tasks.nnlm, speech2text_torch.models.cif, "
+        "speech2text_torch.models.best_rq\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

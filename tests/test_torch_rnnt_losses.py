@@ -17,7 +17,8 @@ from speech2text_tpu.models.joiner import JoinerConfig as JJoinerConfig
 from speech2text_tpu.ops import pruned_rnnt as jp
 from speech2text_tpu.ops import rnnt as jr
 from speech2text_torch.convert import flax_to_state_dict
-from speech2text_torch.losses import CtcLoss, Loss, RnntLoss
+from speech2text_torch.losses import CtcLoss, Loss, MaeLoss, MaskedCeLoss, \
+    MaskedKlDivLoss, RnntLoss
 from speech2text_torch.models.joiner import Joiner, JoinerConfig
 from speech2text_torch.ops import pruned_rnnt as tp
 from speech2text_torch.ops import rnnt as tr
@@ -185,9 +186,10 @@ def test_loss_factory():
     assert loss.config.reduction == "sum"
     assert isinstance(Loss({"model": "CTC"}), CtcLoss)
     assert isinstance(Loss({"model": "Rnnt"}), RnntLoss)
-    for key in ("MaskedCELoss", "MaskedKLDiv", "MaeLoss"):
-        with pytest.raises(NotImplementedError):
-            Loss({"model": key, "config": {}})
+    # the CIF, SSL and NNLM losses (tests/test_torch_nnlm.py)
+    for key, cls in (("MaskedCELoss", MaskedCeLoss),
+                     ("MaskedKLDiv", MaskedKlDivLoss), ("MaeLoss", MaeLoss)):
+        assert isinstance(Loss({"model": key, "config": {}}), cls)
     with pytest.raises(ValueError):
         Loss({"model": "Nope"})
 

@@ -369,7 +369,7 @@ def test_build_task_finetune_and_unported(corpus, tmp_path):
     assert all(torch.equal(got[k], want[k]) for k in want)
     trainer.close()
     for ov in ("callbacks.global_cmvn.apply=true",
-               "callbacks.frontend_save=true", "task.type=CIF"):
+               "callbacks.frontend_save=true"):
         with pytest.raises(NotImplementedError):
             build_task.prepare([f"--training_config={path}", "--device",
                                 "cpu", f"--override={ov}"])
