@@ -125,6 +125,25 @@ Phases (any failed check raises and the script exits non-zero):
      resume), its checkpoint fused into phase 11's beam + LM decode and
      an f32 beam + LM request card = CPU; every B2 call of the runs held
      to the plain version, 0 B1;
+ 16. (the last two CTC encoders and the loop options) on phase 10's
+     corpus, f32, TF32 off: (a) emformer_ctc.yaml (256 x 12) through
+     build_task (10 steps, an evaluation, a bitwise resume),
+     ctc_greedy_search.yaml on its checkpoints, f32 tokens on seeded
+     weights card = CPU (count printed, > 0), its step at B=128 x 2-10 s
+     in parts (featurize, encoder, CTC forward, backward, clipping +
+     AdamW) with peak memory and a profiled step, the max_memory_size=4
+     override's step and 8 streaming_step chunks card = CPU; (b)
+     synthetic HF wav2vec2 checkpoints (768 x 12) in both layouts written
+     and converted by the port's tool, the base one merged through
+     pretrained_path (the stable one raises on the base config),
+     wav2vec2_ctc.yaml through build_task (5 steps, an evaluation, a
+     resume), its greedy decode with tokens card = CPU, its step at B=64
+     x 10 s in parts, 0 B1 and 0 B2 launches throughout; (c) build_task
+     with global_cmvn.apply and no statistics file (16 train batches, cut
+     from JAX's 200): cmvn.json against the CPU's plain-fbank statistics,
+     every B2 call of the run held to the plain version; and
+     accumulate_grad_batches 2 over 4 micro-batches, card = CPU (losses,
+     AdamW moments, parameters, count 2);
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -149,7 +168,9 @@ chunks, B2's times at the B=1 step shape, and at B=16), and under
 batch, the B2 calls checked and their worst error), under "rnnt_family"
 phase 14's, and under "task_families" phase 15's per family (cif, ssl,
 nnlm: launches, per step, CIF's per test batch, the B2 calls checked and
-their worst error).
+their worst error), and under "ctc_encoders" phase 16's (emformer:
+launches, per step, per test batch, calls checked, worst error; wav2vec2:
+0; the CMVN run's and the accumulation run's launches).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1454,13 +1475,13 @@ def same_tokens(task, dec_a, dec_b, batches, what):
     return n
 
 
-def run_inference(name, argv, card, n_layers):
+def run_inference(name, argv, card, n_layers, fbank_per_batch=1):
     """speech2text_torch.inference's main with the kernel counts set to 0
     just before it and read just after; checks the report (a block for
     every row of every test batch, which covers each eval utterance: the
     bucketed test pipeline, as JAX's, tops a bucket's last batch up with
-    repeats; a finite corpus WER) and the launches (n_layers B1 and 1 B2
-    per test batch)."""
+    repeats; a finite corpus WER) and the launches (n_layers B1 and
+    `fbank_per_batch` B2 per test batch)."""
     from speech2text_torch import inference
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import fbank as fb
@@ -1485,7 +1506,7 @@ def run_inference(name, argv, card, n_layers):
     assert last == f"corpus wer: {run['wer']:.4f} ({len(utts)} utts)" \
         and math.isfinite(run["wer"]), f"{name}: {last!r}"
     want = {"attn_weights": n_layers * run["batches"],
-            "fbank": run["batches"]}
+            "fbank": fbank_per_batch * run["batches"]}
     assert launches == want, f"{name}: launches {launches}, expected {want}"
     log(f"infer {name}: inference.main {wall:.2f} s for {run['batches']} "
         f"test batches, corpus WER {run['wer']:.4f}, peak memory "
@@ -2114,12 +2135,13 @@ def conformer_train_run(card, name, cfg, argv, steps, val_every, keys,
         "fbank_err_of_energy": worst_energy}
 
 
-def conformer_inference(card, name, argv):
-    """inference.main (0 B1 and 1 B2 launch per test batch; run_inference
-    checks the report), every B2 call held to the plain version; returns
-    the run and the worst log-domain B2 error."""
+def conformer_inference(card, name, argv, fbank_per_batch=1):
+    """inference.main (0 B1 and `fbank_per_batch` B2 launches per test
+    batch; run_inference checks the report), every B2 call held to the
+    plain version; returns the run and the worst log-domain B2 error."""
     run, _, launches, _, calls = counted_main(
-        lambda args: run_inference(name, args, card, 0), argv)
+        lambda args: run_inference(name, args, card, 0, fbank_per_batch),
+        argv)
     _, worst_log, _ = checked_calls(calls, name, launches["fbank"])
     assert launches == run["launches"]
     return run, worst_log
@@ -3591,6 +3613,552 @@ def phase_task_families(card, report, tmp, trained):
             for kernel in ("attn_weights", "fbank")}
 
 
+# ------------------------------------------------------------ phase 16
+EMF_CFG = "configs/training/emformer_ctc.yaml"
+W2V_CFG = "configs/training/wav2vec2_ctc.yaml"
+EMF_STEPS, W2V_STEPS = 10, 5
+# wav2vec2's step: B=128 would keep ~8.4 GB per extractor activation and
+# ~12 GB of attention weights; 64 x 10 s
+W2V_B, W2V_SECS, W2V_CPU_BATCHES = 64, 10, 1
+EMF_MEMORY, EMF_STREAM_CHUNKS = 4, 8
+# raw fbank frames of one 16-frame segment after the rate-4 subsampling
+EMF_CHUNK_FRAMES = 67
+# the CMVN run reads this many train batches (JAX's build_task reads 200;
+# at ~0.3 s of host loading a batch the phase takes a few)
+CMVN_CHIP_BATCHES = 16
+# card vs CPU statistics: the B2 and plain features differ by rounding
+CMVN_TOL = dict(rtol=1e-4, atol=1e-5)
+ACCUM, ACCUM_MICRO, ACCUM_LAYERS = 2, 4, 2
+ENC_SPANS = ("featurize", "backward", "optimizer")
+
+
+def ctc_recipe_step_parts(name, task, optimizer, clip, batch, card):
+    """A CTC recipe's step split into its parts, each ended by a
+    synchronise: featurize, the encoder, the CTC forward (Projector head
+    and CTC loss), the backward, the clipping and AdamW; medians of 3
+    after a warm-up, the peak memory, the kernel launches of those four
+    steps, and one profiled step of the Trainer's own (`step_losses` →
+    take_step) with its device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.optim import clip_by_global_norm_
+    from speech2text_torch.train.step import take_step
+    model = task.model
+    pcm, pcm_lens, labels, lab_lens = batch
+    tb = {"pcm": pcm, "pcm_length": pcm_lens, "label": labels,
+          "label_length": lab_lens}
+    gen = torch.Generator("cuda").manual_seed(SEED + 61)
+    sync = torch.cuda.synchronize
+    names = ("featurize", "encoder", "ctc_forward", "backward", "optimizer")
+    times = {k: [] for k in names}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    for rep in range(4):
+        marks = []
+        sync()
+        marks.append(time.perf_counter())
+        feats, feat_lens = task.featurize(tb)
+        sync()
+        marks.append(time.perf_counter())
+        enc, enc_lens = model.encoder(feats, feat_lens, training=True,
+                                      generator=gen)
+        sync()
+        marks.append(time.perf_counter())
+        logits, out_lens = model.decoder(enc, enc_lens, training=True,
+                                         generator=gen)
+        loss = task.loss({"logits": logits, "logits_length": out_lens,
+                          "label": labels, "label_length": lab_lens})
+        sync()
+        marks.append(time.perf_counter())
+        optimizer.zero_grad()
+        loss.backward()
+        sync()
+        marks.append(time.perf_counter())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, clip, torch.nn.utils.get_total_norm(grads))
+        optimizer.step()
+        sync()
+        marks.append(time.perf_counter())
+        if rep:
+            for k, a, b in zip(names, marks, marks[1:]):
+                times[k].append(b - a)
+        assert math.isfinite(loss.item()), f"{name} step: loss {loss.item()}"
+        del feats, enc, logits, loss, grads
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    total = sum(med.values())
+    gens = tuple(torch.Generator(d).manual_seed(SEED + 62)
+                 for d in ("cuda", "cuda", "cpu"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = take_step(model, task.step_losses(tb, 0, gens), optimizer,
+                        clip)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    assert all(math.isfinite(float(v)) for v in out.values()), out
+    rows, busy, spans = profile_summary(prof, ENC_SPANS)
+    log(f"{name} train step (B={pcm.shape[0]}, N={pcm.shape[1]} samples, U "
+        f"<= {labels.shape[1]}, T' = {int(out_lens.max())} CTC frames; "
+        f"median ms of 3, synchronised): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med.items())
+        + f"; sum {total:.2f} ms ({pcm.shape[0] / total * 1e3:.2f} utt/s), "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches} over 4 "
+        f"steps; profiled Trainer step: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f} %), "
+        f"{sum(r[2] for r in rows)} device ops; host time of its spans "
+        + ", ".join(f"{k} {spans.get(k, float('nan')):.2f} ms"
+                    for k in ENC_SPANS), card)
+    for key, ms, n in rows[:6]:
+        log(f"  {ms:9.3f} ms  x{n:<6d} {key[:90]}", card)
+    return {"B": int(pcm.shape[0]), "N": int(pcm.shape[1]),
+            "T_out": int(out_lens.max()), "U": int(labels.shape[1]),
+            "parts_ms": med, "sum_ms": total, "peak_memory_bytes": peak,
+            "launches": launches, "profiled_wall_ms": wall,
+            "device_busy_ms": busy, "span_host_ms": spans,
+            "top_device_ops": rows[:20]}
+
+
+def greedy_card_cpu(task, run, batches, seed, what):
+    """Seeded weights of the run's model on the card and on the CPU, from
+    the same features (the card's featurize), over the test batches
+    given: the frame-wise argmax of the logits and the greedy CTC tokens
+    identical; returns (tokens, frames) compared (a seeded model may
+    repeat one label over many frames, which the greedy collapse folds
+    into a few tokens)."""
+    from speech2text_torch.decoding import build_decoding
+    from speech2text_torch.ops.masking import make_non_pad_mask
+    from speech2text_torch.tasks.ctc import CtcModel
+    seeded = CtcModel.from_config(run["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(seed))
+    task.model.load_state_dict(seeded.state_dict())
+    cpu_model = seeded.eval()
+    dec = build_decoding({"decode_method": "ctc_greedy_search"})
+    n_tok = n_frames = 0
+    with torch.no_grad():
+        for batch in batches:
+            feats, lens = task.featurize(batch)
+            got, got_lens = task.model(feats, lens)
+            want, want_lens = cpu_model(feats.cpu(), lens.cpu())
+            assert torch.equal(got_lens.cpu(), want_lens), what
+            valid = make_non_pad_mask(want_lens, want.shape[1])
+            diff = (got.argmax(-1).cpu() != want.argmax(-1)) & valid
+            assert not bool(diff.any()), \
+                f"{what}: {int(diff.sum())} frames' argmax differ"
+            tg, cg = dec.decode(torch.log_softmax(got, -1), got_lens)
+            tc, cc = dec.decode(torch.log_softmax(want, -1), want_lens)
+            assert torch.equal(cg.cpu(), cc) and torch.equal(tg.cpu(), tc), \
+                f"{what}: f32 tokens differ between the card and the CPU"
+            n_tok += int(cc.sum())
+            n_frames += int(want_lens.sum())
+    assert n_tok > 0, f"{what}: the seeded model emitted no token"
+    return n_tok, n_frames
+
+
+def emformer_streaming_card_cpu(cfg, card):
+    """`max_memory_size` EMF_MEMORY: EMF_STREAM_CHUNKS streaming steps of
+    seeded weights on the card and on the CPU from the same features:
+    each chunk's output and every cache, bank and counter within ENC_TOL
+    of the CPU's; returns the chunks' worst error and the ms per chunk on
+    the card."""
+    from speech2text_torch.models.emformer import Emformer, EmformerConfig
+    from speech2text_torch.models.layers import init_parameters
+    enc_cfg = EmformerConfig(**dict(cfg["encoder"]["config"],
+                                    max_memory_size=EMF_MEMORY))
+    cpu = Emformer(enc_cfg)
+    init_parameters(cpu, torch.Generator().manual_seed(SEED + 63))
+    dev = Emformer(enc_cfg)
+    dev.load_state_dict(cpu.state_dict())
+    dev.cuda()
+    rng = np.random.default_rng(SEED + 64)
+    chunks = torch.from_numpy(rng.standard_normal(
+        (EMF_STREAM_CHUNKS, 2, EMF_CHUNK_FRAMES, enc_cfg.feats_dim))
+        .astype(np.float32))
+    s_cpu, s_dev = cpu.init_state(2), dev.init_state(2, device="cuda")
+    worst, ms = 0.0, []
+    with torch.no_grad():
+        for c in chunks:
+            out_cpu, s_cpu = cpu.streaming_step(c, s_cpu)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_dev, s_dev = dev.streaming_step(c.cuda(), s_dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            assert out_dev.shape == (2, enc_cfg.segment_length,
+                                     enc_cfg.output_dim)
+            for i, (g, w) in enumerate(zip([out_dev] + s_dev,
+                                           [out_cpu] + s_cpu)):
+                check_close(f"emformer streaming step tensor {i}", g.cpu(),
+                            w, **ENC_TOL)
+            worst = max(worst, float((out_dev.cpu() - out_cpu).abs().max()))
+    assert s_dev[-1].tolist() == [EMF_STREAM_CHUNKS] * 2
+    log(f"emformer max_memory_size={EMF_MEMORY}: {EMF_STREAM_CHUNKS} "
+        f"streaming_step chunks ({EMF_CHUNK_FRAMES} fbank frames -> "
+        f"{enc_cfg.segment_length}, B=2, f32, seeded weights) on the card "
+        f"equal the CPU's within {ENC_TOL} (outputs, {enc_cfg.num_layers} "
+        f"caches, {enc_cfg.num_layers} banks, the counter; worst output "
+        f"error {worst:.3g}); ms per chunk on the card "
+        f"{[round(x, 2) for x in ms]}", card)
+    return {"chunks": EMF_STREAM_CHUNKS, "max_abs_err": worst,
+            "ms_per_chunk": ms}
+
+
+def w2v2_checkpoints(tmp, enc_cfg, card):
+    """Synthetic HF checkpoints at the YAML's width from the seed, written
+    by the port's writer in both layouts (the stable one with torch's
+    parametrized weight-norm names, half its tensors BF16) and converted
+    by the port's tool; returns the base file's path and its tensors."""
+    from speech2text_torch.config import from_dict
+    from speech2text_torch.models.wav2vec2 import Wav2Vec2Config
+    from speech2text_torch.tools import convert_wav2vec2 as conv
+    c = from_dict(Wav2Vec2Config, enc_cfg)
+    dims = dict(hidden=c.hidden_dim, num_layers=c.num_layers, ffn=c.ffn_dim,
+                pos_kernel=c.conv_pos_kernel, pos_groups=c.conv_pos_groups)
+    out = {}
+    for stable in (False, True):
+        t0 = time.perf_counter()
+        tensors = conv.synthetic_hf_tensors(
+            stable=stable, seed=SEED + 65 + stable, parametrized=stable,
+            prefix="wav2vec2." if stable else "", **dims)
+        st = os.path.join(tmp, f"w2v2_{int(stable)}.safetensors")
+        conv.write_safetensors(tensors, st, bf16=sorted(tensors)[::2]
+                               if stable else ())
+        path = os.path.join(tmp, f"w2v2_{int(stable)}.pt")
+        state, layout = conv.convert(st, path)
+        assert layout == {"num_layers": dims["num_layers"],
+                          "do_stable_layer_norm": int(stable),
+                          "feat_extract_norm": int(stable)}, layout
+        n = sum(t.numel() for t in state.values())
+        log(f"wav2vec2 {'stable' if stable else 'base'} checkpoint: "
+            f"{len(tensors)} HF tensors ({os.path.getsize(st) / 2**20:.0f} "
+            f"MiB) -> {len(state)} encoder tensors, {n} parameters, layout "
+            f"{layout}, in {time.perf_counter() - t0:.1f} s", card)
+        out[stable] = (path, state)
+    return out
+
+
+def phase_ctc_encoders(card, report, tmp, trained):
+    """Phase 16: the last two CTC encoders and the loop options on phase
+    10's corpus, f32 with TF32 off: (a) emformer_ctc.yaml through
+    build_task with a bitwise resume, ctc_greedy_search.yaml on its
+    checkpoints, f32 tokens on seeded weights card = CPU, its step at
+    B=128 x 2-10 s in parts, the max_memory_size override's step and
+    streaming_step card = CPU; (b) wav2vec2_ctc.yaml from a converted
+    synthetic HF checkpoint through build_task with a resume, its greedy
+    decode, tokens card = CPU, its step at B=64 x 10 s, 0 kernel
+    launches; (c) global CMVN computed by build_task, its cmvn.json against
+    the CPU's, every B2 call of it held to the plain version, and
+    accumulate_grad_batches 2 over 4 micro-batches card = CPU."""
+    from speech2text_torch import build_task
+    from speech2text_torch.config import load_config
+    from speech2text_torch.models.cmvn import compute_cmvn_stats
+    from speech2text_torch.models.emformer import Emformer
+    from speech2text_torch.models.wav2vec2 import Wav2Vec2Encoder
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.optim import MultiSteps, OptimSetup
+    from speech2text_torch.tasks.ctc import CtcModel, CtcTask
+    assert not torch.backends.cuda.matmul.allow_tf32 and \
+        not torch.backends.cudnn.allow_tf32
+    t_phase = time.perf_counter()
+    out = {}
+    corpus = trained["corpus"]
+
+    def argv_of(cfg, sub, steps, *extra):
+        return recipe_argv(cfg, f"{tmp}/{sub}", tmp, corpus,
+                           f"trainer.log_interval={CONF_LOG_EVERY}",
+                           f"trainer.val_check_interval={steps}", *extra)
+
+    # (a) Emformer: build_task, resume, greedy inference, card = CPU
+    argv = argv_of(EMF_CFG, "encoders", EMF_STEPS)
+    trainer, rec = conformer_train_run(card, "emformer", EMF_CFG, argv,
+                                       EMF_STEPS, EMF_STEPS, CTC_KEYS)
+    task = trainer.task
+    assert isinstance(task.model.encoder, Emformer) and trainer.clip == 5.0
+    at_width(task.model.encoder.config, EMF_CFG)
+    rec["resume_eval"] = fam_resume(card, "emformer", argv, EMF_STEPS)
+    emf_train_cfg = os.path.join(trainer.workdir, os.path.basename(EMF_CFG))
+    rng = np.random.default_rng(SEED + 60)
+    pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
+                                            TRAIN_U, 128)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (pcm, lens, labels, lab_lens))
+    rec["step_parts"] = ctc_recipe_step_parts(
+        "emformer", task, trainer.optimizer, trainer.clip, batch, card)
+    # the memory-bank override at the same width: its step, then streaming
+    cfg = load_config(EMF_CFG)
+    cfg["encoder"]["config"]["max_memory_size"] = EMF_MEMORY
+    task.model = CtcModel.from_config(cfg)
+    task.model.init_weights(torch.Generator().manual_seed(SEED + 62))
+    task.model.cuda()
+    optimizer, _ = OptimSetup(cfg["optim_setup"],
+                              task.model.named_parameters())
+    rec["memory_step_parts"] = ctc_recipe_step_parts(
+        f"emformer max_memory_size={EMF_MEMORY}", task, optimizer,
+        trainer.clip, batch, card)
+    rec["memory_streaming"] = emformer_streaming_card_cpu(cfg, card)
+    out["emformer_train"] = rec
+    del trainer, task, batch, optimizer
+    torch.cuda.empty_cache()
+    run, emf_worst = conformer_inference(
+        card, "emformer_greedy", recipe_infer_argv(
+            CTC_INFER["greedy"], f"{tmp}/encoders_infer/emformer",
+            emf_train_cfg, corpus))
+    task, dev = run["task"], run["device"]
+    assert isinstance(task.model.encoder, Emformer)
+    batches = device_batches(task, dev)
+    n_tok, n_frames = greedy_card_cpu(task, run, batches[:CONF_CPU_BATCHES],
+                                      SEED + 66, "emformer greedy")
+    log(f"emformer ctc_greedy_search: corpus WER {run['wer']:.4f}, "
+        f"{run['batches']} test batches in {run['wall_s']:.2f} s; f32 "
+        f"frame argmax and tokens on seeded weights identical on the card "
+        f"and the CPU over {CONF_CPU_BATCHES} test batches: {n_frames} "
+        f"frames, {n_tok} tokens compared", card)
+    out["emformer_decode"] = {"wer": run["wer"], "wall_s": run["wall_s"],
+                              "launches": run["launches"],
+                              "batches": run["batches"],
+                              "card_cpu_tokens": n_tok,
+                              "card_cpu_frames": n_frames}
+    emf_infer = run["launches"]
+    del run, task, batches
+    torch.cuda.empty_cache()
+
+    # (b) Wav2Vec2 from a converted synthetic HF checkpoint
+    w2v_cfg = load_config(W2V_CFG)
+    ckpts = w2v2_checkpoints(tmp, w2v_cfg["encoder"]["config"], card)
+    base_path, base_state = ckpts[False]
+    stable_path, _ = ckpts[True]
+    mismatch = CtcTask(dict(w2v_cfg, encoder={
+        "model": "Wav2Vec2", "config": dict(w2v_cfg["encoder"]["config"],
+                                            pretrained_path=stable_path)},
+        tokenizer={"type": "char", "config": {}}))
+    try:
+        mismatch.merge_pretrained_encoder()
+        raise AssertionError("a stable checkpoint merged into the base "
+                             "layout")
+    except ValueError as err:
+        assert "layout mismatch" in str(err), err
+    stable = CtcTask(dict(w2v_cfg, encoder={
+        "model": "Wav2Vec2", "config": dict(
+            w2v_cfg["encoder"]["config"], pretrained_path=stable_path,
+            feat_extract_norm="layer", do_stable_layer_norm=True)},
+        tokenizer={"type": "char", "config": {}}))
+    n_stable = stable.merge_pretrained_encoder()
+    del mismatch, stable
+    argv = argv_of(W2V_CFG, "encoders", W2V_STEPS,
+                   f"encoder.config.pretrained_path={base_path}")
+    trainer, rec = conformer_train_run(
+        card, "wav2vec2", W2V_CFG, argv, W2V_STEPS, W2V_STEPS, CTC_KEYS,
+        fbank_per_step=0, fbank_per_eval_batch=0)
+    task = trainer.task
+    assert isinstance(task.model.encoder, Wav2Vec2Encoder)
+    got = dataclasses.asdict(task.model.encoder.config)
+    assert all(got[k] == v for k, v in dict(
+        w2v_cfg["encoder"]["config"], pretrained_path=base_path).items()), \
+        got
+    enc = task.model.encoder.state_dict()
+    # the frozen extractor moved only by AdamW's decay (lr·wd per step)
+    for k, v in base_state.items():
+        if k.startswith("feature_extractor."):
+            check_close(f"wav2vec2 merged {k}", enc[k].cpu(), v, 1e-4, 0.0)
+    log(f"wav2vec2: the base checkpoint ({len(base_state)} tensors) merged "
+        f"through pretrained_path (frozen extractor within 1e-4 of it after "
+        f"{W2V_STEPS} steps); the stable one merges into a stable-layout "
+        f"config ({n_stable} tensors) and raises ValueError on the base "
+        f"config", card)
+    rec["resume_eval"] = fam_resume(card, "wav2vec2", argv, W2V_STEPS)
+    w2v_train_cfg = os.path.join(trainer.workdir, os.path.basename(W2V_CFG))
+    rng = np.random.default_rng(SEED + 67)
+    pcm, lens, labels, lab_lens = train_pcm(rng, W2V_B, W2V_SECS, W2V_SECS,
+                                            TRAIN_U, 128)
+    batch = tuple(torch.from_numpy(x).cuda()
+                  for x in (pcm, lens, labels, lab_lens))
+    rec["step_parts"] = ctc_recipe_step_parts(
+        "wav2vec2", task, trainer.optimizer, trainer.clip, batch, card)
+    assert rec["step_parts"]["launches"] == {"attn_weights": 0, "fbank": 0}
+    out["wav2vec2_train"] = rec
+    del trainer, task, batch, enc
+    torch.cuda.empty_cache()
+    run, _ = conformer_inference(
+        card, "wav2vec2_greedy", recipe_infer_argv(
+            CTC_INFER["greedy"], f"{tmp}/encoders_infer/wav2vec2",
+            w2v_train_cfg, corpus), fbank_per_batch=0)
+    task, dev = run["task"], run["device"]
+    batches = device_batches(task, dev)
+    n_w2v, w2v_frames = greedy_card_cpu(
+        task, run, batches[:W2V_CPU_BATCHES], SEED + 68, "wav2vec2 greedy")
+    log(f"wav2vec2 ctc_greedy_search: corpus WER {run['wer']:.4f}, "
+        f"{run['batches']} test batches in {run['wall_s']:.2f} s, launches "
+        f"{run['launches']}; f32 frame argmax and tokens on seeded weights "
+        f"identical on the card and the CPU over {W2V_CPU_BATCHES} test "
+        f"batch: {w2v_frames} frames, {n_w2v} tokens compared", card)
+    out["wav2vec2_decode"] = {"wer": run["wer"], "wall_s": run["wall_s"],
+                              "launches": run["launches"],
+                              "batches": run["batches"],
+                              "card_cpu_tokens": n_w2v,
+                              "card_cpu_frames": w2v_frames}
+    del run, task, batches
+    torch.cuda.empty_cache()
+
+    # (c) global CMVN computed by build_task: CMVN_CHIP_BATCHES B2 calls
+    # first, their lengths recorded; the CPU's statistics from the plain
+    # fbank on the same PCM
+    build_task.CMVN_BATCHES = CMVN_CHIP_BATCHES
+    lens_seen = []
+    feature_batches = build_task.cmvn_feature_batches
+
+    def recorded(task, device):
+        for feats, lens in feature_batches(task, device):
+            lens_seen.append(lens)
+            yield feats, lens
+
+    build_task.cmvn_feature_batches = recorded
+    argv = argv_of(EMF_CFG, "cmvn", 2, "callbacks.global_cmvn.apply=true")
+    try:
+        trainer, run_s, launches, _, calls = counted_main(
+            build_task.main, argv + ["--max_steps", "2"])
+    finally:
+        build_task.cmvn_feature_batches = feature_batches
+    try:
+        assert len(calls["fbank"]) == launches["fbank"] and \
+            len(lens_seen) == CMVN_CHIP_BATCHES
+        with torch.no_grad():
+            cpu_feats = [fb.fbank_plain(*(x.cpu() if isinstance(
+                x, torch.Tensor) else x for x in a))
+                for a, _ in calls["fbank"][:CMVN_CHIP_BATCHES]]
+        cpu_stats = compute_cmvn_stats(
+            (f.numpy(), n) for f, n in zip(cpu_feats, lens_seen))
+    except BaseException:
+        calls.close()
+        raise
+    n_checked, cmvn_worst, _ = checked_calls(calls, "cmvn run",
+                                             launches["fbank"])
+    eval_batches = trainer.task.make_eval_pipeline().batches_per_epoch()
+    want = CMVN_CHIP_BATCHES + 2 * 2 + eval_batches
+    assert launches == {"attn_weights": 0, "fbank": want}, launches
+    with open(os.path.join(trainer.workdir, "cmvn.json")) as f:
+        stats = json.load(f)
+    for key in ("mean", "istd"):
+        got = np.asarray(stats[key], np.float32)
+        ref = getattr(cpu_stats, key).numpy()
+        np.testing.assert_allclose(got, ref, err_msg=f"cmvn {key}",
+                                   **CMVN_TOL)
+    assert torch.equal(trainer.task.cmvn.mean.cpu(),
+                       torch.tensor(stats["mean"]))
+    rel = {k: float(np.max(np.abs(np.asarray(stats[k]) - getattr(
+        cpu_stats, k).numpy()) / np.abs(getattr(cpu_stats, k).numpy())))
+        for k in ("mean", "istd")}
+    log(f"cmvn: build_task computed cmvn.json over {CMVN_CHIP_BATCHES} train "
+        f"batches on the card ({run_s:.1f} s with 2 steps and an evaluation;"
+        f" JAX's build_task reads 200); it equals the CPU's plain-fbank "
+        f"statistics of the same PCM within {CMVN_TOL} (worst relative "
+        f"error mean {rel['mean']:.3g}, istd {rel['istd']:.3g}); launches "
+        f"{launches} ({CMVN_CHIP_BATCHES} for the statistics, 2 per step, 1 "
+        f"per eval batch), {n_checked} B2 calls within check_mel (worst log "
+        f"error {cmvn_worst:.3g})", card)
+    out["cmvn"] = {"batches": CMVN_CHIP_BATCHES, "run_s": run_s,
+                   "launches": launches, "fbank_calls_checked": n_checked,
+                   "fbank_max_abs_err": cmvn_worst, "worst_rel_err": rel}
+    del trainer, calls
+    build_task.CMVN_BATCHES = 200
+
+    # (c) accumulation: 4 micro-batches of 2 per update on the card and on
+    # the CPU (dropout and the device-drawn augmentation off)
+    runs = {}
+    for where in ("card", "host"):
+        argv = argv_of(
+            EMF_CFG, f"accum_{where}", ACCUM_MICRO,
+            f"trainer.accumulate_grad_batches={ACCUM}",
+            "trainer.log_interval=1",
+            f"encoder.config.num_layers={ACCUM_LAYERS}",
+            "encoder.config.dropout=0.0", "decoder.config.dropout_p=0.0",
+            "dataset.data_aug_config.use_spec_aug=false",
+            "dataset.data_aug_config.use_add_noise=false",
+            "dataset.data_aug_config.use_mix_feats=false")
+        argv += ["--max_steps", str(ACCUM_MICRO)]
+        if where == "host":
+            runs[where] = (build_task.main(argv + ["--device", "cpu"]), None)
+        else:
+            trainer, _, launches, _, calls = counted_main(build_task.main,
+                                                          argv)
+            checked_calls(calls, "accumulation run", launches["fbank"])
+            runs[where] = (trainer, launches)
+    (tc, launches), (tcpu, _) = runs["card"], runs["host"]
+    for t in (tc, tcpu):
+        assert isinstance(t.optimizer, MultiSteps) and \
+            t.optimizer.gradient_step == ACCUM_MICRO // ACCUM and \
+            t.optimizer.optimizer.count == ACCUM_MICRO // ACCUM
+    lc, lcpu = (metrics_of(t.workdir) for t in (tc, tcpu))
+    for a, b in zip(lc, lcpu):
+        check_close(f"accumulation loss step {a['step']}",
+                    torch.tensor(a["loss"]), torch.tensor(b["loss"]),
+                    STEP_LOSS_RTOL, 0.0)
+    state_c = tc.optimizer.state_dict()["inner"]
+    state_cpu = tcpu.optimizer.state_dict()["inner"]
+    for name in ("mu", "nu"):
+        for i, (a, b) in enumerate(zip(state_c[name], state_cpu[name])):
+            check_close(f"accumulation {name} {i}", a, b, 0.0,
+                        STEP_GRAD_TOL * float(b.abs().max()) + 1e-30)
+    cpu_params = dict(tcpu.task.model.named_parameters())
+    for k, p in tc.task.model.named_parameters():
+        check_close(f"accumulation param {k}", p.detach().cpu(),
+                    cpu_params[k].detach(), **STEP_PARAM_TOL)
+    log(f"accumulation: accumulate_grad_batches={ACCUM} over {ACCUM_MICRO} "
+        f"micro-batches (emformer_ctc.yaml at {ACCUM_LAYERS} layers, dropout "
+        f"and the device-drawn augmentation off): optimizer count "
+        f"{ACCUM_MICRO // ACCUM} on both, losses "
+        f"{[round(r['loss'], 4) for r in lc]} within rtol {STEP_LOSS_RTOL} "
+        f"of the CPU's, AdamW moments within {STEP_GRAD_TOL} of their "
+        f"largest, parameters within {STEP_PARAM_TOL}; launches {launches}",
+        card)
+    out["accumulation"] = {"losses": [r["loss"] for r in lc],
+                           "losses_cpu": [r["loss"] for r in lcpu],
+                           "launches": launches}
+    del runs, tc, tcpu
+
+    wall = time.perf_counter() - t_phase
+    emf = out["emformer_train"]
+    b2_total = emf["launches"]["fbank"] + emf_infer["fbank"]
+    worst = max(emf["fbank_max_abs_err"], emf_worst, cmvn_worst)
+    log(f"ctc encoders phase: {wall:.1f} s; launches B1 0; B2 emformer "
+        f"{emf['launches']['fbank']} + {emf_infer['fbank']} in inference, "
+        f"wav2vec2 0, cmvn run {out['cmvn']['launches']['fbank']}; every B2 "
+        f"call within check_mel (worst log error {worst:.3g})", card)
+    out["wall_s"] = wall
+    report["ctc_encoders"] = out
+    evals = len(emf["eval_s"]) * emf["eval_batches"]
+    w2v = out["wav2vec2_train"]
+    return {
+        "attn_weights": {"launches": 0, "emformer": 0, "wav2vec2": 0},
+        "fbank": {
+            "launches": b2_total + out["cmvn"]["launches"]["fbank"]
+            + launches["fbank"],
+            "emformer": {"launches": b2_total,
+                         "launches_per_step": (emf["launches"]["fbank"]
+                                               - evals) / EMF_STEPS,
+                         "launches_per_test_batch":
+                             emf_infer["fbank"] / out["emformer_decode"][
+                                 "batches"],
+                         "calls_checked": emf["fbank_calls_checked"]
+                         + emf_infer["fbank"],
+                         "max_abs_err": max(emf["fbank_max_abs_err"],
+                                            emf_worst)},
+            "wav2vec2": {"launches": w2v["launches"]["fbank"]
+                         + out["wav2vec2_decode"]["launches"]["fbank"]},
+            "cmvn": {"launches": out["cmvn"]["launches"]["fbank"],
+                     "calls_checked": n_checked, "max_abs_err": cmvn_worst},
+            "accumulation": {"launches": launches["fbank"]}}}
+
+
+def metrics_of(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 # ------------------------------------------------------------ compare
 def load_earlier(pkg_dir):
     """The kernel wrapper modules (ops.attn_weights, ops.fbank) of the
@@ -3730,6 +4298,7 @@ def main(argv):
         conformer = phase_conformer(card, report, tmp, run)
         family = phase_rnnt_family(card, report, tmp, run)
         families = phase_task_families(card, report, tmp, run)
+        encoders = phase_ctc_encoders(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -3756,7 +4325,8 @@ def main(argv):
              stream=stream["attn_weights"],
              conformer=conformer["attn_weights"],
              rnnt_family=family["attn_weights"],
-             task_families=families["attn_weights"]),
+             task_families=families["attn_weights"],
+             ctc_encoders=encoders["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -3772,7 +4342,8 @@ def main(argv):
                         max_abs_err=infer_err["fbank"]),
              stream=stream["fbank"], conformer=conformer["fbank"],
              rnnt_family=family["fbank"],
-             task_families=families["fbank"]),
+             task_families=families["fbank"],
+             ctc_encoders=encoders["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer", "rnnt_family") + (
@@ -3786,6 +4357,13 @@ def main(argv):
                 fams["ssl"]["launches"] > 0, fams
         assert k["name"] == "fbank" or not any(
             r["launches"] for r in fams.values()), fams
+        enc = k["ctc_encoders"]
+        if k["name"] == "fbank":
+            assert enc["emformer"]["launches"] > 0 and \
+                enc["cmvn"]["launches"] > 0 and \
+                enc["wav2vec2"]["launches"] == 0, enc
+        else:
+            assert enc["launches"] == 0, enc
         for path in (k, k["serve"]):
             assert path["launches"] > 0, \
                 f"{k['name']} never launched on a path"

@@ -16,11 +16,17 @@ the tensors whose name and shape match are copied, such as an SSL
 checkpoint's encoder into a CTC task; the count is logged),
 and resume from the run's latest checkpoint or from `resume` (also
 after the host-RSS watchdog's exec-restart, `trainer.max_rss_gb`).
+With `callbacks.global_cmvn.apply` and no statistics file yet
+(`pre_compute_cmvn`, else `<workdir>/cmvn.json`), the global CMVN
+statistics are computed as the JAX package's build_task computes them:
+up to `CMVN_BATCHES` train batches featurized by the task's frontend
+(kernel B2 on the card), accumulated in f64 on the host, written in the
+JAX package's JSON format and loaded.
 
 Runs on `cuda` unless `--device cpu` or the YAML's `trainer.platform:
 cpu` asks for the CPU; with no CUDA device and no such request it raises
-before it writes anything. Computing global CMVN statistics and the
-frontend export callback are not ported: asking for either raises.
+before it writes anything. The frontend export callback is not ported:
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -34,11 +40,16 @@ import numpy as np
 import torch
 
 from .config import dumps, load_config, override
+from .data.frontend import dequant_pcm
+from .models.cmvn import GlobalCmvn, compute_cmvn_stats
+from .tasks.base import Featurizer
 from .tasks.factory import TaskFactory
 from .tools.spm_train import spm_training_preprocess
 from .train.checkpoint import average_checkpoints
 from .train.loop import Trainer, resolve_device
 from .utils.logging import get_logger, init_logging
+
+CMVN_BATCHES = 200
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -69,6 +80,23 @@ def load_finetune(ft: Dict[str, Any]) -> Optional[Dict[str, torch.Tensor]]:
     return torch.load(base, map_location="cpu", weights_only=True)["model"]
 
 
+def cmvn_feature_batches(task: Featurizer, device: torch.device):
+    """(feats, lengths) as numpy of the first `CMVN_BATCHES` batches of
+    the task's train pipeline (its default seed, as the JAX package's),
+    featurized by the frontend alone (no augmentation) on `device`."""
+    task.frontend.to(device)
+    it = iter(task.make_train_pipeline())
+    try:
+        for _, batch in zip(range(CMVN_BATCHES), it):
+            with torch.no_grad():
+                feats, lens = task.frontend(
+                    dequant_pcm(torch.from_numpy(batch["pcm"]).to(device)),
+                    torch.from_numpy(batch["pcm_length"]).to(device))
+            yield feats.cpu().numpy(), lens.cpu().numpy()
+    finally:
+        it.close()
+
+
 def prepare(argv: Optional[List[str]] = None
             ) -> Tuple[Trainer, Dict[str, Any]]:
     """Everything before `Trainer.fit`: returns the trainer and fit's
@@ -84,13 +112,6 @@ def prepare(argv: Optional[List[str]] = None
     task_section = config["task"]
     task_cls = TaskFactory(task_section["type"])
     cb = config.get("callbacks") or {}
-    cmvn_cb = cb.get("global_cmvn") or {}
-    if cmvn_cb.get("apply") and not (cmvn_cb.get("pre_compute_cmvn") and
-                                     os.path.exists(
-                                         cmvn_cb["pre_compute_cmvn"])):
-        raise NotImplementedError("computing global CMVN statistics is not "
-                                  "ported: give callbacks.global_cmvn."
-                                  "pre_compute_cmvn")
     if cb.get("frontend_save"):
         raise NotImplementedError("the frontend export callback is not "
                                   "ported")
@@ -112,6 +133,16 @@ def prepare(argv: Optional[List[str]] = None
     task = task_cls(config)
     log.info("task %s (%s): vocab=%d, device %s", task_section["name"],
              task_section["type"], len(task.tokenizer), device)
+    cmvn_cb = cb.get("global_cmvn") or {}
+    if cmvn_cb.get("apply") and isinstance(task, Featurizer) and \
+            task.cmvn.mean is None:
+        path = cmvn_cb.get("pre_compute_cmvn") or os.path.join(workdir,
+                                                               "cmvn.json")
+        if not os.path.exists(path):
+            log.info("computing global CMVN over the train set ...")
+            compute_cmvn_stats(cmvn_feature_batches(task, device)).save(path)
+        task.cmvn = GlobalCmvn.from_file(path)
+        log.info("global CMVN loaded from %s", path)
     finetune_state = load_finetune(config.get("finetune") or {})
     trainer = Trainer(task, config, workdir, seed=seed, device=device)
     return trainer, dict(resume=config.get("resume"),

@@ -14,7 +14,7 @@ tools/convert_zipformer_ref.py's):
 | Conv1d kernel (K, in/g, out)      | weight (out, in/g, K)      |
 | Conv2d kernel (kh, kw, in/g, out) | weight (out, in/g, kh, kw) |
 | Embed embedding (V, E)            | weight (V, E), unchanged   |
-| LayerNorm scale (D,)              | weight (D,), unchanged     |
+| LayerNorm, GroupNorm scale (D,)   | weight (D,), unchanged     |
 
 A depthwise Conv1d (flax `feature_group_count = D`, such as the
 Conformer's conv module and CIF's `alpha_conv`) has the kernel (K, 1,
@@ -23,7 +23,10 @@ D), hence the weight (D, 1, K); CIF's `alpha_proj` is a Dense (D, 1) →
 (`ConformerBlock_3`, `Dense_0`, ...) included, except `stack{i}` →
 `stacks.{i}`, `layer{i}` → `layers.{i}` and the feedforward's `in` →
 `in_`. Unknown keys, missing keys, shape mismatches and the
-`scan_layers` layout (a stacked `layers` subtree) raise.
+`scan_layers` layout (a stacked `layers` subtree) raise. The Wav2Vec2
+encoder's flat indexed names (`conv{i}`, `norm{i}`, `attn{i}`, `ffn{i}`,
+`layer_norm{i}`, `final_layer_norm{i}`) are module names of the port as
+they stand.
 
 The LSTM layers of models/rnn_lm.py (flax `rnns_{i}/cell`, an
 OptimizedLSTMCell with kernels `ii, if, ig, io` (in, H) without bias and
@@ -155,7 +158,8 @@ def to_flax(model: nn.Module) -> Dict[str, Any]:
             continue
         if last == "weight" and kinds.get(owner) == "Embed":
             last = "embedding"
-        elif last == "weight" and kinds.get(owner) == "LayerNorm":
+        elif last == "weight" and kinds.get(owner) in ("LayerNorm",
+                                                        "GroupNorm"):
             last = "scale"
         elif last == "weight":
             inv = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[leaf.ndim]

@@ -183,7 +183,7 @@ class DummyFrontend(nn.Module):
     def __init__(self, dummy: int = -1, **kwargs):
         super().__init__()
 
-    def forward(self, pcm, sample_lengths):
+    def forward(self, pcm, sample_lengths, dither_generator=None):
         return pcm, sample_lengths
 
 

@@ -3,10 +3,9 @@ speech2text_tpu/models/factories.py): the encoder, decoder head and
 predictor of a training config's `encoder`, `decoder` and `predictor`
 sections ({"model": key, "config": {...}}).
 
-Ported keys: encoders Conformer and Zipformer, decoders Identity and
-Projector, the Stateless and Lstm predictors. The JAX package's other
-keys (encoders Emformer and Wav2Vec2) raise NotImplementedError; an
-unknown key raises ValueError.
+Keys: encoders Conformer, Zipformer, Emformer and Wav2Vec2, decoders
+Identity and Projector, the Stateless and Lstm predictors, as the JAX
+package has them; an unknown key raises ValueError.
 """
 
 from __future__ import annotations
@@ -19,15 +18,11 @@ from ..config import from_dict
 from .conformer import Conformer, ConformerConfig
 from .decoder import (IdentityDecoder, IdentityDecoderConfig,
                       ProjectorDecoder, ProjectorDecoderConfig)
+from .emformer import Emformer, EmformerConfig
 from .predictor import (LstmPredictor, LstmPredictorConfig,
                         StatelessPredictor, StatelessPredictorConfig)
+from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 from .zipformer import Zipformer2, Zipformer2Config
-
-
-def _unported(kind: str, model: str, known: tuple) -> None:
-    if model in known:
-        raise NotImplementedError(f"{kind} {model!r} is not ported")
-    raise ValueError(f"unknown {kind} {model}")
 
 
 def EncoderFactory(config: Dict[str, Any]) -> nn.Module:
@@ -36,7 +31,11 @@ def EncoderFactory(config: Dict[str, Any]) -> nn.Module:
         return Conformer(from_dict(ConformerConfig, cfg))
     if model == "Zipformer":
         return Zipformer2(Zipformer2Config.from_config(cfg))
-    _unported("encoder", model, ("Emformer", "Wav2Vec2"))
+    if model == "Emformer":
+        return Emformer(from_dict(EmformerConfig, cfg))
+    if model == "Wav2Vec2":
+        return Wav2Vec2Encoder(from_dict(Wav2Vec2Config, cfg))
+    raise ValueError(f"unknown encoder {model}")
 
 
 def DecoderFactory(config: Dict[str, Any]) -> nn.Module:
@@ -45,7 +44,7 @@ def DecoderFactory(config: Dict[str, Any]) -> nn.Module:
         return IdentityDecoder(from_dict(IdentityDecoderConfig, cfg))
     if model == "Projector":
         return ProjectorDecoder(from_dict(ProjectorDecoderConfig, cfg))
-    _unported("decoder", model, ())
+    raise ValueError(f"unknown decoder {model}")
 
 
 def PredictorFactory(config: Dict[str, Any]) -> nn.Module:
@@ -54,4 +53,4 @@ def PredictorFactory(config: Dict[str, Any]) -> nn.Module:
         return StatelessPredictor(from_dict(StatelessPredictorConfig, cfg))
     if model == "Lstm":
         return LstmPredictor(from_dict(LstmPredictorConfig, cfg))
-    _unported("predictor", model, ())
+    raise ValueError(f"unknown predictor {model}")

@@ -10,7 +10,8 @@ initialisers do (`init_parameters`):
   (lecun_normal for scale 1; `scaled_init(s)` is scale s²), biases zero;
 - Embed: variance_scaling(1, "fan_in", "normal", out_axis=0), i.e.
   N(0, 1/features);
-- LayerNorm: scale ones, bias zeros (flax's ε = 1e-6, statistics in f32).
+- LayerNorm: scale ones, bias zeros (flax's ε = 1e-6 unless given,
+  statistics in f32); GroupNorm (one group per channel) likewise.
 
 Parameter layouts are PyTorch's (Linear (out, in), Conv (out, in/g, *k));
 speech2text_torch/convert.py maps the flax layouts onto them.
@@ -130,17 +131,19 @@ class Embed(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax.linen.LayerNorm over the last axis: ε = 1e-6 (torch's default
-    is 1e-5), statistics in f32, the result in `dtype`. Its `weight` is
-    flax's `scale`."""
+    """flax.linen.LayerNorm over the last axis: ε = 1e-6 by default
+    (torch's default is 1e-5), statistics in f32, the result in `dtype`.
+    Its `weight` is flax's `scale`."""
 
     EPS = 1e-6
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 eps: float = EPS):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
+        self.eps = eps
 
     def init_parameters(self, g: torch.Generator) -> None:
         with torch.no_grad():
@@ -149,7 +152,22 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, self.EPS).to(self.dtype)
+                            self.bias, self.eps).to(self.dtype)
+
+
+class GroupNorm(LayerNorm):
+    """flax.linen.GroupNorm with one group per channel, on channels-first
+    input (B, C, T): each channel normalised over time with flax's
+    statistics in f32, mean(x) and var = max(mean(x²) − mean(x)², 0).
+    Its `weight` is flax's `scale`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp(x.square().mean(dim=-1, keepdim=True)
+                          - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None]
+        return ((x - mean) * mul + self.bias[:, None]).to(self.dtype)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -12,7 +12,8 @@ of its own whose schedule has that base lr, the other parameters one with
 the default lr (`MultiOptimizer`); each optimizer sees only its
 parameters, so ScaledAdam clips each group by its own norms. Global-norm
 clipping (`trainer.gradient_clip_val`) is the training step's
-(optim/adam.py:clip_by_global_norm_).
+(optim/adam.py:clip_by_global_norm_), or `MultiSteps`' under gradient
+accumulation.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import torch
 
-from .adam import Adam
+from .adam import Adam, clip_by_global_norm_
 from .scaled_adam import ScaledAdam
 from .schedules import (CosineAnnealingSchedule, CosineWarmupSchedule,
                         EdenSchedule, NoamHoldAnnealingSchedule,
@@ -82,6 +83,71 @@ class MultiOptimizer:
                              f"not {sorted(self.optimizers)}")
         for name, opt in self.optimizers.items():
             opt.load_state_dict(state[name])
+
+
+class MultiSteps:
+    """Gradient accumulation over `every_k` micro-batches, as
+    optax.MultiSteps wraps the JAX loop's whole chain (global-norm
+    clipping to `clip`, then the optimizer): each `step()` folds the
+    parameters' gradients (a missing one as zero) into the running mean
+    acc ← acc + (g − acc) / (n + 1); at the k-th the mean is clipped and
+    handed to `optimizer` as the gradients, its count advancing once per
+    k, and the mean restarts from zero. The accumulator and both counters
+    are in `state_dict()`, as they are in optax's state, so a checkpoint
+    taken between micro-batches resumes bitwise."""
+
+    def __init__(self, optimizer, every_k: int,
+                 params: Iterable[torch.Tensor],
+                 clip: Union[float, None] = None):
+        self.optimizer = optimizer
+        self.every_k = int(every_k)
+        self.params = [p for p in params if p.requires_grad]
+        self.clip = clip
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for p, acc in zip(self.params, self.acc):
+            g = p.grad if p.grad is not None else torch.zeros_like(acc)
+            acc.add_((g - acc) / (n + 1))
+        if n < self.every_k - 1:
+            self.mini_step = n + 1
+            return
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+        if self.clip is not None:
+            grads = [p.grad for p in self.params]
+            clip_by_global_norm_(grads, self.clip,
+                                 torch.nn.utils.get_total_norm(grads))
+        self.optimizer.step()
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+
+    def state_dict(self) -> dict:
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": [t.detach().cpu() for t in self.acc],
+                "inner": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["acc"]) != len(self.params) or any(
+                t.shape != p.shape for t, p in zip(state["acc"],
+                                                   self.params)):
+            raise ValueError("accumulated gradients: shapes differ")
+        self.optimizer.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        self.acc = [t.to(p.device, copy=True)
+                    for t, p in zip(state["acc"], self.params)]
 
 
 def OptimSetup(config: Dict[str, Any],

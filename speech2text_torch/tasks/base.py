@@ -2,17 +2,22 @@
 tokenizer, the data pipelines and the device-side featurization
 (add_noise → fbank → mix_feats → CMVN → SpecAugment).
 
-`Featurizer` holds the fbank frontend, CMVN and the augmentation config
-of a training YAML; `AsrTaskBase` adds the tokenizer, the pipelines and
-the training step's inputs (`step_losses`).
+`Featurizer` holds the frontend (fbank, or the raw-PCM passthrough of
+`feat_type: pcm`), CMVN and the augmentation config of a training YAML;
+`AsrTaskBase` adds the tokenizer, the pipelines, the training step's
+inputs (`step_losses`) and the merge of a converted pretrained encoder
+(`merge_pretrained_encoder`).
 `featurize(batch, generator, training)` draws every augmentation value
 from `generator` (on the batch's device) before it computes, in a fixed
 order (add_noise, mix_feats, SpecAugment, then dither inside the
 frontend), so one generator state gives one result. `draws` given
 explicitly replace the sampled ones; the tests feed the JAX package's
 draws there. The fbank of the speech batch and of the noise batch go
-through kernel B2 on the card. The wav2vec2 pretrained-encoder merge is
-not ported.
+through kernel B2 on the card. With the PCM frontend only add_noise
+applies (mix_feats and SpecAugment act on fbank features, as the JAX
+package's `isinstance(frontend, Fbank)` checks decide), and no kernel
+runs: the features are the dequantised PCM, CMVN applied as JAX applies
+it.
 """
 
 from __future__ import annotations
@@ -35,16 +40,14 @@ Batch = Dict[str, Any]
 
 
 class Featurizer(nn.Module):
-    """fbank frontend + CMVN + augmentation of a training config's
-    `dataset` and `callbacks` sections."""
+    """frontend + CMVN + augmentation of a training config's `dataset`
+    and `callbacks` sections."""
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
         ds = config.get("dataset") or {}
         self.frontend = FrontendSetup(ds.get("feat_type", "lhotes_fbank"),
                                       ds.get("feat_config") or {})
-        if not isinstance(self.frontend, Fbank):
-            raise NotImplementedError("only fbank frontends are ported")
         self.aug = dict(ds.get("data_aug_config") or {})
         cmvn_cfg = (config.get("callbacks") or {}).get("global_cmvn") or {}
         path = cmvn_cfg.get("pre_compute_cmvn")
@@ -56,7 +59,7 @@ class Featurizer(nn.Module):
                             ) -> Dict[str, augment.Draws]:
         """The training augmentation's random values for `batch`, as the
         YAML turns each transform on."""
-        aug, cfg = self.aug, self.frontend.cfg
+        aug = self.aug
         draws: Dict[str, augment.Draws] = {}
         has_noise = "noise_pcm" in batch
         if aug.get("use_add_noise") and has_noise:
@@ -66,6 +69,9 @@ class Featurizer(nn.Module):
                 p=float(aug.get("add_noise_proportion", 0.5)),
                 min_snr_db=float(nc.get("min_snr_db", 10)),
                 max_snr_db=float(nc.get("max_snr_db", 50)))
+        if not isinstance(self.frontend, Fbank):
+            return draws
+        cfg = self.frontend.cfg
         if aug.get("use_mix_feats") and has_noise:
             mc = aug.get("mix_feats_config") or {}
             draws["mix_feats"] = augment.sample_mix_feats(
@@ -167,3 +173,48 @@ class AsrTaskBase(Featurizer):
     @property
     def vocab_size(self) -> int:
         return len(self.tokenizer)
+
+    def merge_pretrained_encoder(self) -> int:
+        """Load the converted checkpoint that `encoder.config.
+        pretrained_path` names (speech2text_torch/tools/
+        convert_wav2vec2.py's file) over the encoder's weights; returns
+        the tensors loaded (0 with no path). Its recorded layout must
+        match the config (ValueError); a tensor the encoder lacks raises
+        KeyError and one of another shape ValueError, before anything is
+        loaded."""
+        enc_cfg = (self.config.get("encoder") or {}).get("config") or {}
+        path = enc_cfg.get("pretrained_path")
+        if not path:
+            return 0
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        layout = ckpt.get("layout")
+        if layout is not None:
+            # the pre-norm and post-norm layouts have the same names and
+            # shapes: a merge of the wrong one would load and compute
+            # garbage
+            want = {
+                "num_layers": int(enc_cfg.get("num_layers", 12)),
+                "do_stable_layer_norm": int(
+                    bool(enc_cfg.get("do_stable_layer_norm", False))),
+                "feat_extract_norm": int(
+                    enc_cfg.get("feat_extract_norm", "group") == "layer"),
+            }
+            for k, expect in want.items():
+                if k in layout and int(layout[k]) != expect:
+                    raise ValueError(
+                        f"pretrained checkpoint layout mismatch: {k} is "
+                        f"{int(layout[k])} in {path} but the encoder "
+                        f"config expects {expect}")
+        live = self.model.encoder.state_dict()
+        for k, v in ckpt["encoder"].items():
+            if k not in live:
+                raise KeyError(f"pretrained key encoder/{k} not in model "
+                               f"params (layout mismatch?)")
+            if tuple(live[k].shape) != tuple(v.shape):
+                raise ValueError(f"shape mismatch at encoder/{k}: model "
+                                 f"{tuple(live[k].shape)} vs checkpoint "
+                                 f"{tuple(v.shape)}")
+        with torch.no_grad():
+            for k, v in ckpt["encoder"].items():
+                live[k].copy_(v)
+        return len(ckpt["encoder"])

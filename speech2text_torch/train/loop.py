@@ -16,7 +16,18 @@ YAML's `monitor` and `mode` (`wer`, `min` for the ASR tasks; `acc`,
 SSL, not at all for NNLM) and returns the losses closure that
 train/step.py:take_step runs. The global step (0-based, the restored one
 after a resume) goes into the task's training losses, where the
-Zipformer2's training dynamics read their schedules.
+Zipformer2's training dynamics read their schedules. A converted
+pretrained encoder (`encoder.config.pretrained_path`) is loaded over the
+seeded init (tasks/base.py:merge_pretrained_encoder).
+
+Gradient accumulation (`trainer.accumulate_grad_batches` k > 1), as the
+JAX loop's optax.MultiSteps: the optimizer (with the clipping) is
+wrapped in optim/setup.py:MultiSteps, which averages the gradients of k
+micro-batches and updates once, so the optimizer's count and schedule
+advance once per k; the global step the task reads and the logged lr are
+step // k, while `max_steps`, `val_check_interval` and the logged `step`
+count micro-batches (an epoch-based `max_steps` or fractional interval is
+k times the batches).
 
 The host-RSS watchdog (`trainer.max_rss_gb` > 0, the JAX loop's): every
 `log_interval` steps, when the process's current resident set exceeds
@@ -44,8 +55,7 @@ span, and `history` keeps per step the host clock at its end, its data
 wait and the seconds of an evaluation after it.
 
 Not ported, and refused when the YAML asks for them: a device mesh of
-more than one device (multi-GPU data parallelism), FSDP and
-`accumulate_grad_batches > 1`.
+more than one device (multi-GPU data parallelism) and FSDP.
 """
 
 from __future__ import annotations
@@ -63,7 +73,8 @@ from torch.profiler import record_function
 
 from ..decoding import reference_decoder
 from ..metrics import AsrMetric
-from ..optim import OptimSetup
+from ..optim import MultiSteps, OptimSetup
+from ..tasks.base import AsrTaskBase
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
 from .step import clip_value, take_step
@@ -121,9 +132,6 @@ def _check_unported(tcfg: Dict[str, Any]) -> None:
                                   f"model parallelism is not ported")
     if tcfg.get("fsdp"):
         raise NotImplementedError("trainer.fsdp is not ported")
-    if int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 is not "
-                                  "ported")
 
 
 def _merge_state(model: torch.nn.Module,
@@ -155,7 +163,11 @@ class Trainer:
         os.makedirs(workdir, exist_ok=True)
         self.seed = seed
         self.clip = clip_value(config)
+        self.accum = int(tcfg.get("accumulate_grad_batches", 1) or 1)
         task.model.init_weights(torch.Generator().manual_seed(seed))
+        if isinstance(task, AsrTaskBase) and task.merge_pretrained_encoder():
+            log.info("pretrained encoder loaded from %s",
+                     config["encoder"]["config"]["pretrained_path"])
         task.to(self.device)
         self.optimizer = None
         self.schedule = None
@@ -199,6 +211,9 @@ class Trainer:
                      len(finetune_state))
         self.optimizer, self.schedule = OptimSetup(
             self.config["optim_setup"], model.named_parameters())
+        if self.accum > 1:
+            self.optimizer = MultiSteps(self.optimizer, self.accum,
+                                        model.parameters(), self.clip)
         restored = None
         if resume:
             mgr = self.ckpt if os.path.abspath(resume) == \
@@ -255,12 +270,13 @@ class Trainer:
         step's generators), then train/step.py:take_step with the
         config's clipping. Returns the step's metrics (train_loss, the
         task's other losses and metrics, grad_norm, frames) as 0-d
-        tensors on the device. `step` is the global step (0-based) the
-        training dynamics read."""
+        tensors on the device. `step` is the micro-batch (0-based); the
+        training dynamics read the global step, step // accumulation."""
         task = self.task
         metrics = take_step(
-            task.model, task.step_losses(batch, step, self.generators(step)),
-            self.optimizer, self.clip)
+            task.model, task.step_losses(batch, step // self.accum,
+                                         self.generators(step)),
+            self.optimizer, self.clip if self.accum == 1 else None)
         metrics["train_loss"] = metrics.pop("loss")
         return metrics
 
@@ -275,10 +291,10 @@ class Trainer:
         if max_steps is None:
             max_steps = self.max_steps
         if max_steps is None:
-            max_steps = steps_per_epoch * (self.max_epochs or 1)
+            max_steps = steps_per_epoch * (self.max_epochs or 1) * self.accum
         if self.val_check_interval and self.val_check_interval <= 1.0:
-            val_every = max(int(steps_per_epoch * self.val_check_interval),
-                            1)
+            val_every = max(int(steps_per_epoch * self.accum
+                                * self.val_check_interval), 1)
         else:
             val_every = int(self.val_check_interval)
 
@@ -286,8 +302,8 @@ class Trainer:
         if step:
             train_pipe.skip_batches(step)
             log.info("data pipeline fast-forwarded to batch %d", step)
-        log.info("training: %d steps (%d/epoch) on %s", max_steps,
-                 steps_per_epoch, self.device)
+        log.info("training: %d steps (%d/epoch, accum %d) on %s",
+                 max_steps, steps_per_epoch, self.accum, self.device)
         t_last = time.time()
         utts, frames, waits = 0, 0, []
         metrics: Dict[str, torch.Tensor] = {}
@@ -325,10 +341,12 @@ class Trainer:
 
     def _counts(self, batch: Dict[str, Any]) -> Tuple[int, int]:
         """The loop's counters of a host batch, as JAX's loop counts:
-        (utterances, fbank frames of the PCM at the frontend's hop), or
-        for a text batch (rows, tokens)."""
+        (utterances, fbank frames of the PCM at the frontend's hop, 160
+        samples for the PCM frontend), or for a text batch (rows,
+        tokens)."""
         if "pcm_length" in batch:
-            hop = self.task.frontend.cfg.frame_shift
+            hop = getattr(getattr(self.task.frontend, "cfg", None),
+                          "frame_shift", 160)
             lens = batch["pcm_length"]
             return len(lens), int(np.asarray(lens, np.int64).sum()) // hop
         lens = batch["text_length"]
@@ -354,7 +372,7 @@ class Trainer:
              frames: int, waits: List[float], dt: float) -> None:
         host = {k: float(v) for k, v in metrics.items() if k != "frames"}
         rec = {"step": step, "loss": host.get("train_loss", 0.0),
-               "lr": float(self.schedule(step)),
+               "lr": float(self.schedule(step // self.accum)),
                "utts_per_sec": utts / dt, "frames_per_sec": frames / dt,
                **host,
                "data_wait_ms": 1e3 * sum(waits) / max(len(waits), 1)}

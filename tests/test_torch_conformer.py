@@ -26,11 +26,13 @@ from speech2text_tpu.tasks.rnnt import RnntModel as JRnntModel
 from speech2text_torch.convert import flax_to_state_dict, to_flax
 from speech2text_torch.models import conformer as tc
 from speech2text_torch.models import decoder as td
+from speech2text_torch.models.emformer import Emformer
 from speech2text_torch.models.factories import (DecoderFactory,
                                                 EncoderFactory,
                                                 PredictorFactory)
 from speech2text_torch.models.layers import init_parameters
 from speech2text_torch.models.predictor import LstmPredictor
+from speech2text_torch.models.wav2vec2 import Wav2Vec2Encoder
 from speech2text_torch.tasks.rnnt import RnntModel
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -260,9 +262,11 @@ def test_factories():
         "num_layers": 1}}), tc.Conformer)
     assert isinstance(DecoderFactory({"model": "Identity"}),
                       td.IdentityDecoder)
-    for model in ("Emformer", "Wav2Vec2"):
-        with pytest.raises(NotImplementedError):
-            EncoderFactory({"model": model})
+    assert isinstance(EncoderFactory({"model": "Emformer", "config": {
+        "num_layers": 1}}), Emformer)
+    assert isinstance(EncoderFactory({"model": "Wav2Vec2", "config": {
+        "hidden_dim": 32, "num_layers": 1, "num_heads": 2, "ffn_dim": 64,
+        "conv_pos_kernel": 16, "conv_pos_groups": 4}}), Wav2Vec2Encoder)
     assert isinstance(PredictorFactory({"model": "Lstm"}), LstmPredictor)
     for fac in (EncoderFactory, DecoderFactory, PredictorFactory):
         with pytest.raises(ValueError):

@@ -39,7 +39,10 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.optim.setup, speech2text_torch.tasks.rnnt, "
         "speech2text_torch.tasks.cif, speech2text_torch.tasks.ssl, "
         "speech2text_torch.tasks.nnlm, speech2text_torch.models.cif, "
-        "speech2text_torch.models.best_rq\n"
+        "speech2text_torch.models.best_rq, speech2text_torch.models.emformer, "
+        "speech2text_torch.models.wav2vec2, "
+        "speech2text_torch.tools.convert_wav2vec2, "
+        "speech2text_torch.optim.setup, speech2text_torch.models.cmvn\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

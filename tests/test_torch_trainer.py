@@ -306,11 +306,13 @@ def test_tb_writer_bytes_equal_jax(tmp_path, monkeypatch):
 
 def test_unported_options_raise(corpus, tmp_path):
     workdir = str(tmp_path / "x")
-    for key, value in (("accumulate_grad_batches", 2),
-                       ("mesh", {"data": 2, "model": 1}), ("fsdp", True)):
+    for key, value in (("mesh", {"data": 2, "model": 1}), ("fsdp", True)):
         cfg = _config(corpus, workdir, **{key: value})
         with pytest.raises(NotImplementedError):
             Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
+    # gradient accumulation is ported (tests/test_torch_loop_options.py)
+    cfg = _config(corpus, workdir, accumulate_grad_batches=2)
+    assert Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu").accum == 2
     for key, value in (("decode_method", "ctc_greedy_search"),
                        ("decode_method", "ctc_prefix_beam_search"),
                        ("int8", True)):
@@ -368,8 +370,16 @@ def test_build_task_finetune_and_unported(corpus, tmp_path):
     got = trainer.task.model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
     trainer.close()
-    for ov in ("callbacks.global_cmvn.apply=true",
-               "callbacks.frontend_save=true"):
-        with pytest.raises(NotImplementedError):
-            build_task.prepare([f"--training_config={path}", "--device",
-                                "cpu", f"--override={ov}"])
+    with pytest.raises(NotImplementedError):
+        build_task.prepare([f"--training_config={path}", "--device", "cpu",
+                            "--override=callbacks.frontend_save=true"])
+    # global CMVN is ported: an existing statistics file is loaded as it is
+    # (their computation: tests/test_torch_loop_options.py)
+    stats = tmp_path / "stats.json"
+    stats.write_text(json.dumps({"mean": [0.5] * 80, "istd": [2.0] * 80}))
+    trainer, _ = build_task.prepare([
+        f"--training_config={path}", "--device", "cpu",
+        "--override=callbacks.global_cmvn.apply=true",
+        f"--override=callbacks.global_cmvn.pre_compute_cmvn={stats}"])
+    trainer.close()
+    assert torch.equal(trainer.task.cmvn.mean, torch.full((80,), 0.5))
