@@ -3629,6 +3629,9 @@ CMVN_CHIP_BATCHES = 16
 # card vs CPU statistics: the B2 and plain features differ by rounding
 CMVN_TOL = dict(rtol=1e-4, atol=1e-5)
 ACCUM, ACCUM_MICRO, ACCUM_LAYERS = 2, 4, 2
+# the accumulation run's buckets (the YAML's 600 s of audio per batch and
+# 16 utterances at least): its CPU twin takes ~8 s per such micro-batch
+ACCUM_VOLUME, ACCUM_MIN_BATCH = 60.0, 4
 ENC_SPANS = ("featurize", "backward", "optimizer")
 
 
@@ -3636,9 +3639,12 @@ def ctc_recipe_step_parts(name, task, optimizer, clip, batch, card):
     """A CTC recipe's step split into its parts, each ended by a
     synchronise: featurize, the encoder, the CTC forward (Projector head
     and CTC loss), the backward, the clipping and AdamW; medians of 3
-    after a warm-up, the peak memory, the kernel launches of those four
-    steps, and one profiled step of the Trainer's own (`step_losses` →
-    take_step) with its device busy share."""
+    after a warm-up, the peak memory, and one profiled step of the
+    Trainer's own (`step_losses` → take_step) with its device busy share.
+    The kernel launches of those five steps are counted and every call
+    captured; each step's B2 calls are held to the plain version after
+    its last mark. The peak is reset at each step and read before that
+    check: it includes the step's captured B2 inputs and outputs."""
     from torch.profiler import ProfilerActivity, profile
 
     from speech2text_torch.ops import attn_weights as aw
@@ -3650,67 +3656,82 @@ def ctc_recipe_step_parts(name, task, optimizer, clip, batch, card):
     tb = {"pcm": pcm, "pcm_length": pcm_lens, "label": labels,
           "label_length": lab_lens}
     gen = torch.Generator("cuda").manual_seed(SEED + 61)
+    gens = tuple(torch.Generator(d).manual_seed(SEED + 62)
+                 for d in ("cuda", "cuda", "cpu"))
     sync = torch.cuda.synchronize
     names = ("featurize", "encoder", "ctc_forward", "backward", "optimizer")
     times = {k: [] for k in names}
+    peak = n_checked = 0
+    worst = 0.0
     sync()
-    torch.cuda.reset_peak_memory_stats()
+    calls = KernelCalls()
     aw.KERNEL.launches = fb.KERNEL.launches = 0
-    for rep in range(4):
-        marks = []
-        sync()
-        marks.append(time.perf_counter())
-        feats, feat_lens = task.featurize(tb)
-        sync()
-        marks.append(time.perf_counter())
-        enc, enc_lens = model.encoder(feats, feat_lens, training=True,
-                                      generator=gen)
-        sync()
-        marks.append(time.perf_counter())
-        logits, out_lens = model.decoder(enc, enc_lens, training=True,
-                                         generator=gen)
-        loss = task.loss({"logits": logits, "logits_length": out_lens,
-                          "label": labels, "label_length": lab_lens})
-        sync()
-        marks.append(time.perf_counter())
-        optimizer.zero_grad()
-        loss.backward()
-        sync()
-        marks.append(time.perf_counter())
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        clip_by_global_norm_(grads, clip, torch.nn.utils.get_total_norm(grads))
-        optimizer.step()
-        sync()
-        marks.append(time.perf_counter())
-        if rep:
-            for k, a, b in zip(names, marks, marks[1:]):
-                times[k].append(b - a)
-        assert math.isfinite(loss.item()), f"{name} step: loss {loss.item()}"
-        del feats, enc, logits, loss, grads
-    peak = torch.cuda.max_memory_allocated()
-    launches = {"attn_weights": aw.KERNEL.launches,
-                "fbank": fb.KERNEL.launches}
+    try:
+        for rep in range(4):
+            torch.cuda.reset_peak_memory_stats()
+            marks = []
+            sync()
+            marks.append(time.perf_counter())
+            feats, feat_lens = task.featurize(tb)
+            sync()
+            marks.append(time.perf_counter())
+            enc, enc_lens = model.encoder(feats, feat_lens, training=True,
+                                          generator=gen)
+            sync()
+            marks.append(time.perf_counter())
+            logits, out_lens = model.decoder(enc, enc_lens, training=True,
+                                             generator=gen)
+            loss = task.loss({"logits": logits, "logits_length": out_lens,
+                              "label": labels, "label_length": lab_lens})
+            sync()
+            marks.append(time.perf_counter())
+            optimizer.zero_grad()
+            loss.backward()
+            sync()
+            marks.append(time.perf_counter())
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            clip_by_global_norm_(grads, clip,
+                                 torch.nn.utils.get_total_norm(grads))
+            optimizer.step()
+            sync()
+            marks.append(time.perf_counter())
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if rep:
+                for k, a, b in zip(names, marks, marks[1:]):
+                    times[k].append(b - a)
+            assert math.isfinite(loss.item()), \
+                f"{name} step: loss {loss.item()}"
+            del feats, enc, logits, loss, grads
+            n, w, _ = check_fbank_calls(calls, f"{name} step {rep}")
+            n_checked, worst = n_checked + n, max(worst, w)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = take_step(model, task.step_losses(tb, 0, gens), optimizer,
+                            clip)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        launches = {"attn_weights": aw.KERNEL.launches,
+                    "fbank": fb.KERNEL.launches}
+        n, w, _ = check_fbank_calls(calls, f"{name} profiled step")
+        n_checked, worst = n_checked + n, max(worst, w)
+    finally:
+        calls.close()
+    assert n_checked == launches["fbank"], \
+        f"{name}: {n_checked} B2 calls checked of {launches['fbank']}"
+    assert all(math.isfinite(float(v)) for v in out.values()), out
     med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
     total = sum(med.values())
-    gens = tuple(torch.Generator(d).manual_seed(SEED + 62)
-                 for d in ("cuda", "cuda", "cpu"))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = take_step(model, task.step_losses(tb, 0, gens), optimizer,
-                        clip)
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
-    assert all(math.isfinite(float(v)) for v in out.values()), out
     rows, busy, spans = profile_summary(prof, ENC_SPANS)
     log(f"{name} train step (B={pcm.shape[0]}, N={pcm.shape[1]} samples, U "
         f"<= {labels.shape[1]}, T' = {int(out_lens.max())} CTC frames; "
         f"median ms of 3, synchronised): " + ", ".join(
             f"{k} {v:.2f}" for k, v in med.items())
         + f"; sum {total:.2f} ms ({pcm.shape[0] / total * 1e3:.2f} utt/s), "
-        f"peak memory {peak / 2**30:.2f} GiB, launches {launches} over 4 "
-        f"steps; profiled Trainer step: wall {wall:.2f} ms, device busy "
-        f"{busy:.2f} ms ({100 * busy / wall:.1f} %), "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {launches} over 5 "
+        f"steps, {n_checked} B2 calls within check_mel (worst log error "
+        f"{worst:.3g}); profiled Trainer step: wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms ({100 * busy / wall:.1f} %), "
         f"{sum(r[2] for r in rows)} device ops; host time of its spans "
         + ", ".join(f"{k} {spans.get(k, float('nan')):.2f} ms"
                     for k in ENC_SPANS), card)
@@ -3719,7 +3740,8 @@ def ctc_recipe_step_parts(name, task, optimizer, clip, batch, card):
     return {"B": int(pcm.shape[0]), "N": int(pcm.shape[1]),
             "T_out": int(out_lens.max()), "U": int(labels.shape[1]),
             "parts_ms": med, "sum_ms": total, "peak_memory_bytes": peak,
-            "launches": launches, "profiled_wall_ms": wall,
+            "launches": launches, "fbank_calls_checked": n_checked,
+            "fbank_max_abs_err": worst, "profiled_wall_ms": wall,
             "device_busy_ms": busy, "span_host_ms": spans,
             "top_device_ops": rows[:20]}
 
@@ -3727,10 +3749,11 @@ def ctc_recipe_step_parts(name, task, optimizer, clip, batch, card):
 def greedy_card_cpu(task, run, batches, seed, what):
     """Seeded weights of the run's model on the card and on the CPU, from
     the same features (the card's featurize), over the test batches
-    given: the frame-wise argmax of the logits and the greedy CTC tokens
-    identical; returns (tokens, frames) compared (a seeded model may
-    repeat one label over many frames, which the greedy collapse folds
-    into a few tokens)."""
+    given: the encoder's output and the logits within ENC_TOL of the
+    CPU's, the frame-wise argmax and the greedy CTC tokens identical;
+    returns (tokens, frames, the worst encoder and logit errors) compared
+    (a seeded model may repeat one label over many frames, which the
+    greedy collapse folds into a few tokens)."""
     from speech2text_torch.decoding import build_decoding
     from speech2text_torch.ops.masking import make_non_pad_mask
     from speech2text_torch.tasks.ctc import CtcModel
@@ -3740,12 +3763,20 @@ def greedy_card_cpu(task, run, batches, seed, what):
     cpu_model = seeded.eval()
     dec = build_decoding({"decode_method": "ctc_greedy_search"})
     n_tok = n_frames = 0
+    worst_enc = worst_logit = 0.0
     with torch.no_grad():
-        for batch in batches:
+        for i, batch in enumerate(batches):
             feats, lens = task.featurize(batch)
-            got, got_lens = task.model(feats, lens)
-            want, want_lens = cpu_model(feats.cpu(), lens.cpu())
+            enc_g, enc_lens = task.model.encoder(feats, lens)
+            got, got_lens = task.model.decoder(enc_g, enc_lens)
+            enc_c, enc_lens_c = cpu_model.encoder(feats.cpu(), lens.cpu())
+            want, want_lens = cpu_model.decoder(enc_c, enc_lens_c)
             assert torch.equal(got_lens.cpu(), want_lens), what
+            worst_enc = max(worst_enc, check_close(
+                f"{what} encoder output, batch {i}", enc_g.cpu(), enc_c,
+                **ENC_TOL))
+            worst_logit = max(worst_logit, check_close(
+                f"{what} logits, batch {i}", got.cpu(), want, **ENC_TOL))
             valid = make_non_pad_mask(want_lens, want.shape[1])
             diff = (got.argmax(-1).cpu() != want.argmax(-1)) & valid
             assert not bool(diff.any()), \
@@ -3757,7 +3788,7 @@ def greedy_card_cpu(task, run, batches, seed, what):
             n_tok += int(cc.sum())
             n_frames += int(want_lens.sum())
     assert n_tok > 0, f"{what}: the seeded model emitted no token"
-    return n_tok, n_frames
+    return n_tok, n_frames, worst_enc, worst_logit
 
 
 def emformer_streaming_card_cpu(cfg, card):
@@ -3842,18 +3873,31 @@ def w2v2_checkpoints(tmp, enc_cfg, card):
     return out
 
 
+def held_run(label, fn):
+    """`fn()` through counted_main: its kernel launches counted and every
+    B2 call held to the plain version; returns (its result, its record:
+    launches, calls checked, worst log-domain error)."""
+    result, _, launches, _, calls = counted_main(lambda _: fn(), None)
+    n, worst, _ = checked_calls(calls, label, launches["fbank"])
+    return result, {"launches": launches, "calls_checked": n,
+                    "max_abs_err": worst}
+
+
 def phase_ctc_encoders(card, report, tmp, trained):
     """Phase 16: the last two CTC encoders and the loop options on phase
     10's corpus, f32 with TF32 off: (a) emformer_ctc.yaml through
     build_task with a bitwise resume, ctc_greedy_search.yaml on its
-    checkpoints, f32 tokens on seeded weights card = CPU, its step at
-    B=128 x 2-10 s in parts, the max_memory_size override's step and
-    streaming_step card = CPU; (b) wav2vec2_ctc.yaml from a converted
-    synthetic HF checkpoint through build_task with a resume, its greedy
-    decode, tokens card = CPU, its step at B=64 x 10 s, 0 kernel
+    checkpoints, on seeded weights the encoder output and logits card =
+    CPU within ENC_TOL and the f32 tokens equal, its step at B=128 x 2-10
+    s in parts, the max_memory_size override's step and streaming_step
+    card = CPU; (b) wav2vec2_ctc.yaml from a converted synthetic HF
+    checkpoint through build_task with a resume, its greedy decode with
+    the same card = CPU checks, its step at B=64 x 10 s, 0 kernel
     launches; (c) global CMVN computed by build_task, its cmvn.json against
-    the CPU's, every B2 call of it held to the plain version, and
-    accumulate_grad_batches 2 over 4 micro-batches card = CPU."""
+    the CPU's, and accumulate_grad_batches 2 over 4 micro-batches card =
+    CPU. Every run of the phase on the card has its kernel launches
+    counted and every B2 call held to the plain version; the returned
+    records are those counts' sums."""
     from speech2text_torch import build_task
     from speech2text_torch.config import load_config
     from speech2text_torch.models.cmvn import compute_cmvn_stats
@@ -3867,6 +3911,21 @@ def phase_ctc_encoders(card, report, tmp, trained):
     t_phase = time.perf_counter()
     out = {}
     corpus = trained["corpus"]
+    # every run of the phase that may launch a kernel: its launches, the
+    # B2 calls held to the plain version and their worst log error, by
+    # path ("emformer", "wav2vec2", "cmvn", "accumulation") and run
+    runs = {p: {} for p in ("emformer", "wav2vec2", "cmvn", "accumulation")}
+
+    def note(path, run, launches, calls_checked, max_abs_err):
+        assert calls_checked == launches["fbank"], \
+            (path, run, calls_checked, launches)
+        runs[path][run] = {"launches": dict(launches),
+                           "calls_checked": calls_checked,
+                           "max_abs_err": max_abs_err}
+
+    def noted(path, run, rec):
+        note(path, run, rec["launches"], rec["fbank_calls_checked"],
+             rec["fbank_max_abs_err"])
 
     def argv_of(cfg, sub, steps, *extra):
         return recipe_argv(cfg, f"{tmp}/{sub}", tmp, corpus,
@@ -3877,10 +3936,14 @@ def phase_ctc_encoders(card, report, tmp, trained):
     argv = argv_of(EMF_CFG, "encoders", EMF_STEPS)
     trainer, rec = conformer_train_run(card, "emformer", EMF_CFG, argv,
                                        EMF_STEPS, EMF_STEPS, CTC_KEYS)
+    noted("emformer", "build_task", rec)
     task = trainer.task
     assert isinstance(task.model.encoder, Emformer) and trainer.clip == 5.0
     at_width(task.model.encoder.config, EMF_CFG)
-    rec["resume_eval"] = fam_resume(card, "emformer", argv, EMF_STEPS)
+    rec["resume_eval"], held = held_run(
+        "emformer resume", lambda: fam_resume(card, "emformer", argv,
+                                              EMF_STEPS))
+    note("emformer", "resume", **held)
     emf_train_cfg = os.path.join(trainer.workdir, os.path.basename(EMF_CFG))
     rng = np.random.default_rng(SEED + 60)
     pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
@@ -3889,6 +3952,7 @@ def phase_ctc_encoders(card, report, tmp, trained):
                   for x in (pcm, lens, labels, lab_lens))
     rec["step_parts"] = ctc_recipe_step_parts(
         "emformer", task, trainer.optimizer, trainer.clip, batch, card)
+    noted("emformer", "step_parts", rec["step_parts"])
     # the memory-bank override at the same width: its step, then streaming
     cfg = load_config(EMF_CFG)
     cfg["encoder"]["config"]["max_memory_size"] = EMF_MEMORY
@@ -3900,7 +3964,10 @@ def phase_ctc_encoders(card, report, tmp, trained):
     rec["memory_step_parts"] = ctc_recipe_step_parts(
         f"emformer max_memory_size={EMF_MEMORY}", task, optimizer,
         trainer.clip, batch, card)
-    rec["memory_streaming"] = emformer_streaming_card_cpu(cfg, card)
+    noted("emformer", "memory_step_parts", rec["memory_step_parts"])
+    rec["memory_streaming"], held = held_run(
+        "emformer streaming", lambda: emformer_streaming_card_cpu(cfg, card))
+    note("emformer", "memory_streaming", **held)
     out["emformer_train"] = rec
     del trainer, task, batch, optimizer
     torch.cuda.empty_cache()
@@ -3908,22 +3975,29 @@ def phase_ctc_encoders(card, report, tmp, trained):
         card, "emformer_greedy", recipe_infer_argv(
             CTC_INFER["greedy"], f"{tmp}/encoders_infer/emformer",
             emf_train_cfg, corpus))
+    note("emformer", "inference", run["launches"], run["launches"]["fbank"],
+         emf_worst)
     task, dev = run["task"], run["device"]
     assert isinstance(task.model.encoder, Emformer)
     batches = device_batches(task, dev)
-    n_tok, n_frames = greedy_card_cpu(task, run, batches[:CONF_CPU_BATCHES],
-                                      SEED + 66, "emformer greedy")
+    (n_tok, n_frames, enc_err, logit_err), held = held_run(
+        "emformer card/CPU", lambda: greedy_card_cpu(
+            task, run, batches[:CONF_CPU_BATCHES], SEED + 66,
+            "emformer greedy"))
+    note("emformer", "card_cpu", **held)
     log(f"emformer ctc_greedy_search: corpus WER {run['wer']:.4f}, "
-        f"{run['batches']} test batches in {run['wall_s']:.2f} s; f32 "
-        f"frame argmax and tokens on seeded weights identical on the card "
-        f"and the CPU over {CONF_CPU_BATCHES} test batches: {n_frames} "
-        f"frames, {n_tok} tokens compared", card)
+        f"{run['batches']} test batches in {run['wall_s']:.2f} s; on seeded "
+        f"weights over {CONF_CPU_BATCHES} test batches, the card's f32 "
+        f"encoder output and logits within {ENC_TOL} of the CPU's (worst "
+        f"{enc_err:.3g}, {logit_err:.3g}), frame argmax and tokens "
+        f"identical: {n_frames} frames, {n_tok} tokens compared", card)
     out["emformer_decode"] = {"wer": run["wer"], "wall_s": run["wall_s"],
                               "launches": run["launches"],
                               "batches": run["batches"],
                               "card_cpu_tokens": n_tok,
-                              "card_cpu_frames": n_frames}
-    emf_infer = run["launches"]
+                              "card_cpu_frames": n_frames,
+                              "card_cpu_encoder_max_abs_err": enc_err,
+                              "card_cpu_logits_max_abs_err": logit_err}
     del run, task, batches
     torch.cuda.empty_cache()
 
@@ -3954,6 +4028,7 @@ def phase_ctc_encoders(card, report, tmp, trained):
     trainer, rec = conformer_train_run(
         card, "wav2vec2", W2V_CFG, argv, W2V_STEPS, W2V_STEPS, CTC_KEYS,
         fbank_per_step=0, fbank_per_eval_batch=0)
+    noted("wav2vec2", "build_task", rec)
     task = trainer.task
     assert isinstance(task.model.encoder, Wav2Vec2Encoder)
     got = dataclasses.asdict(task.model.encoder.config)
@@ -3970,7 +4045,10 @@ def phase_ctc_encoders(card, report, tmp, trained):
         f"{W2V_STEPS} steps); the stable one merges into a stable-layout "
         f"config ({n_stable} tensors) and raises ValueError on the base "
         f"config", card)
-    rec["resume_eval"] = fam_resume(card, "wav2vec2", argv, W2V_STEPS)
+    rec["resume_eval"], held = held_run(
+        "wav2vec2 resume", lambda: fam_resume(card, "wav2vec2", argv,
+                                              W2V_STEPS))
+    note("wav2vec2", "resume", **held)
     w2v_train_cfg = os.path.join(trainer.workdir, os.path.basename(W2V_CFG))
     rng = np.random.default_rng(SEED + 67)
     pcm, lens, labels, lab_lens = train_pcm(rng, W2V_B, W2V_SECS, W2V_SECS,
@@ -3979,7 +4057,7 @@ def phase_ctc_encoders(card, report, tmp, trained):
                   for x in (pcm, lens, labels, lab_lens))
     rec["step_parts"] = ctc_recipe_step_parts(
         "wav2vec2", task, trainer.optimizer, trainer.clip, batch, card)
-    assert rec["step_parts"]["launches"] == {"attn_weights": 0, "fbank": 0}
+    noted("wav2vec2", "step_parts", rec["step_parts"])
     out["wav2vec2_train"] = rec
     del trainer, task, batch, enc
     torch.cuda.empty_cache()
@@ -3987,20 +4065,31 @@ def phase_ctc_encoders(card, report, tmp, trained):
         card, "wav2vec2_greedy", recipe_infer_argv(
             CTC_INFER["greedy"], f"{tmp}/encoders_infer/wav2vec2",
             w2v_train_cfg, corpus), fbank_per_batch=0)
+    note("wav2vec2", "inference", run["launches"], 0, 0.0)
     task, dev = run["task"], run["device"]
     batches = device_batches(task, dev)
-    n_w2v, w2v_frames = greedy_card_cpu(
-        task, run, batches[:W2V_CPU_BATCHES], SEED + 68, "wav2vec2 greedy")
+    (n_w2v, w2v_frames, enc_err, logit_err), held = held_run(
+        "wav2vec2 card/CPU", lambda: greedy_card_cpu(
+            task, run, batches[:W2V_CPU_BATCHES], SEED + 68,
+            "wav2vec2 greedy"))
+    note("wav2vec2", "card_cpu", **held)
+    w2v_dims = "{hidden_dim} x {num_layers}".format(
+        **dataclasses.asdict(task.model.encoder.config))
     log(f"wav2vec2 ctc_greedy_search: corpus WER {run['wer']:.4f}, "
         f"{run['batches']} test batches in {run['wall_s']:.2f} s, launches "
-        f"{run['launches']}; f32 frame argmax and tokens on seeded weights "
-        f"identical on the card and the CPU over {W2V_CPU_BATCHES} test "
-        f"batch: {w2v_frames} frames, {n_w2v} tokens compared", card)
+        f"{run['launches']}; on seeded weights over {W2V_CPU_BATCHES} test "
+        f"batch, the card's f32 encoder output (extractor, {w2v_dims} "
+        f"stack, head) and logits within {ENC_TOL} of the CPU's on the same "
+        f"PCM "
+        f"(worst {enc_err:.3g}, {logit_err:.3g}), frame argmax and tokens "
+        f"identical: {w2v_frames} frames, {n_w2v} tokens compared", card)
     out["wav2vec2_decode"] = {"wer": run["wer"], "wall_s": run["wall_s"],
                               "launches": run["launches"],
                               "batches": run["batches"],
                               "card_cpu_tokens": n_w2v,
-                              "card_cpu_frames": w2v_frames}
+                              "card_cpu_frames": w2v_frames,
+                              "card_cpu_encoder_max_abs_err": enc_err,
+                              "card_cpu_logits_max_abs_err": logit_err}
     del run, task, batches
     torch.cuda.empty_cache()
 
@@ -4063,31 +4152,38 @@ def phase_ctc_encoders(card, report, tmp, trained):
     out["cmvn"] = {"batches": CMVN_CHIP_BATCHES, "run_s": run_s,
                    "launches": launches, "fbank_calls_checked": n_checked,
                    "fbank_max_abs_err": cmvn_worst, "worst_rel_err": rel}
+    note("cmvn", "build_task", launches, n_checked, cmvn_worst)
     del trainer, calls
     build_task.CMVN_BATCHES = 200
 
     # (c) accumulation: 4 micro-batches of 2 per update on the card and on
     # the CPU (dropout and the device-drawn augmentation off)
-    runs = {}
+    accum = {}
     for where in ("card", "host"):
         argv = argv_of(
             EMF_CFG, f"accum_{where}", ACCUM_MICRO,
             f"trainer.accumulate_grad_batches={ACCUM}",
             "trainer.log_interval=1",
             f"encoder.config.num_layers={ACCUM_LAYERS}",
+            "dataset.bucket_sampler_config.volume_threshold="
+            f"{ACCUM_VOLUME}",
+            f"dataset.bucket_sampler_config.min_batch_size={ACCUM_MIN_BATCH}",
             "encoder.config.dropout=0.0", "decoder.config.dropout_p=0.0",
             "dataset.data_aug_config.use_spec_aug=false",
             "dataset.data_aug_config.use_add_noise=false",
             "dataset.data_aug_config.use_mix_feats=false")
         argv += ["--max_steps", str(ACCUM_MICRO)]
         if where == "host":
-            runs[where] = (build_task.main(argv + ["--device", "cpu"]), None)
+            accum[where] = (build_task.main(argv + ["--device", "cpu"]),
+                            None)
         else:
             trainer, _, launches, _, calls = counted_main(build_task.main,
                                                           argv)
-            checked_calls(calls, "accumulation run", launches["fbank"])
-            runs[where] = (trainer, launches)
-    (tc, launches), (tcpu, _) = runs["card"], runs["host"]
+            n, worst, _ = checked_calls(calls, "accumulation run",
+                                        launches["fbank"])
+            note("accumulation", "build_task", launches, n, worst)
+            accum[where] = (trainer, launches)
+    (tc, launches), (tcpu, _) = accum["card"], accum["host"]
     for t in (tc, tcpu):
         assert isinstance(t.optimizer, MultiSteps) and \
             t.optimizer.gradient_step == ACCUM_MICRO // ACCUM and \
@@ -4108,7 +4204,8 @@ def phase_ctc_encoders(card, report, tmp, trained):
         check_close(f"accumulation param {k}", p.detach().cpu(),
                     cpu_params[k].detach(), **STEP_PARAM_TOL)
     log(f"accumulation: accumulate_grad_batches={ACCUM} over {ACCUM_MICRO} "
-        f"micro-batches (emformer_ctc.yaml at {ACCUM_LAYERS} layers, dropout "
+        f"micro-batches (emformer_ctc.yaml at {ACCUM_LAYERS} layers, "
+        f"{ACCUM_VOLUME} s of audio per batch, dropout "
         f"and the device-drawn augmentation off): optimizer count "
         f"{ACCUM_MICRO // ACCUM} on both, losses "
         f"{[round(r['loss'], 4) for r in lc]} within rtol {STEP_LOSS_RTOL} "
@@ -4118,40 +4215,41 @@ def phase_ctc_encoders(card, report, tmp, trained):
     out["accumulation"] = {"losses": [r["loss"] for r in lc],
                            "losses_cpu": [r["loss"] for r in lcpu],
                            "launches": launches}
-    del runs, tc, tcpu
+    del accum, tc, tcpu
 
     wall = time.perf_counter() - t_phase
+
+    def total(kernel, path):
+        return sum(r["launches"][kernel] for r in runs[path].values())
+
+    b1 = {path: total("attn_weights", path) for path in runs}
+    b1["launches"] = sum(b1.values())
+    assert b1["launches"] == 0, f"B1 launched in phase 16: {runs}"
+    b2 = {path: {"launches": total("fbank", path),
+                 "calls_checked": sum(r["calls_checked"]
+                                      for r in runs[path].values()),
+                 "max_abs_err": max(r["max_abs_err"]
+                                    for r in runs[path].values()),
+                 "runs": {k: r["launches"]["fbank"]
+                          for k, r in runs[path].items()}}
+          for path in runs}
+    assert b2["wav2vec2"]["launches"] == 0, b2["wav2vec2"]
     emf = out["emformer_train"]
-    b2_total = emf["launches"]["fbank"] + emf_infer["fbank"]
-    worst = max(emf["fbank_max_abs_err"], emf_worst, cmvn_worst)
-    log(f"ctc encoders phase: {wall:.1f} s; launches B1 0; B2 emformer "
-        f"{emf['launches']['fbank']} + {emf_infer['fbank']} in inference, "
-        f"wav2vec2 0, cmvn run {out['cmvn']['launches']['fbank']}; every B2 "
-        f"call within check_mel (worst log error {worst:.3g})", card)
-    out["wall_s"] = wall
-    report["ctc_encoders"] = out
     evals = len(emf["eval_s"]) * emf["eval_batches"]
-    w2v = out["wav2vec2_train"]
-    return {
-        "attn_weights": {"launches": 0, "emformer": 0, "wav2vec2": 0},
-        "fbank": {
-            "launches": b2_total + out["cmvn"]["launches"]["fbank"]
-            + launches["fbank"],
-            "emformer": {"launches": b2_total,
-                         "launches_per_step": (emf["launches"]["fbank"]
-                                               - evals) / EMF_STEPS,
-                         "launches_per_test_batch":
-                             emf_infer["fbank"] / out["emformer_decode"][
-                                 "batches"],
-                         "calls_checked": emf["fbank_calls_checked"]
-                         + emf_infer["fbank"],
-                         "max_abs_err": max(emf["fbank_max_abs_err"],
-                                            emf_worst)},
-            "wav2vec2": {"launches": w2v["launches"]["fbank"]
-                         + out["wav2vec2_decode"]["launches"]["fbank"]},
-            "cmvn": {"launches": out["cmvn"]["launches"]["fbank"],
-                     "calls_checked": n_checked, "max_abs_err": cmvn_worst},
-            "accumulation": {"launches": launches["fbank"]}}}
+    b2["emformer"].update(
+        launches_per_step=(emf["launches"]["fbank"] - evals) / EMF_STEPS,
+        launches_per_test_batch=runs["emformer"]["inference"]["launches"][
+            "fbank"] / out["emformer_decode"]["batches"])
+    b2["launches"] = sum(b2[path]["launches"] for path in runs)
+    worst = max(b2[path]["max_abs_err"] for path in runs)
+    log(f"ctc encoders phase: {wall:.1f} s; launches B1 {b1}; B2 "
+        + "; ".join(f"{path} {b2[path]['runs']}" for path in runs)
+        + f"; all {b2['launches']} B2 calls within check_mel (worst log "
+        f"error {worst:.3g})", card)
+    out["wall_s"] = wall
+    out["runs"] = runs
+    report["ctc_encoders"] = out
+    return {"attn_weights": b1, "fbank": b2}
 
 
 def metrics_of(workdir):

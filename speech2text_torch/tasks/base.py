@@ -5,8 +5,9 @@ tokenizer, the data pipelines and the device-side featurization
 `Featurizer` holds the frontend (fbank, or the raw-PCM passthrough of
 `feat_type: pcm`), CMVN and the augmentation config of a training YAML;
 `AsrTaskBase` adds the tokenizer, the pipelines, the training step's
-inputs (`step_losses`) and the merge of a converted pretrained encoder
-(`merge_pretrained_encoder`).
+inputs (`step_losses`) and the weights' init (`init_weights`: the
+seeded init, then the merge of a converted pretrained encoder,
+`merge_pretrained_encoder`).
 `featurize(batch, generator, training)` draws every augmentation value
 from `generator` (on the batch's device) before it computes, in a fixed
 order (add_noise, mix_feats, SpecAugment, then dither inside the
@@ -173,6 +174,12 @@ class AsrTaskBase(Featurizer):
     @property
     def vocab_size(self) -> int:
         return len(self.tokenizer)
+
+    def init_weights(self, generator: torch.Generator) -> int:
+        """The model's seeded init, then the converted pretrained encoder
+        over it (`merge_pretrained_encoder`); returns the tensors merged."""
+        self.model.init_weights(generator)
+        return self.merge_pretrained_encoder()
 
     def merge_pretrained_encoder(self) -> int:
         """Load the converted checkpoint that `encoder.config.

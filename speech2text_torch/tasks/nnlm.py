@@ -45,6 +45,11 @@ class NnLmTask(nn.Module):
         self.loss = Loss(config["loss"])
         self.topk = int((config.get("metric") or {}).get("top_k", 1))
 
+    def init_weights(self, generator: torch.Generator) -> int:
+        """The LM's seeded init; returns 0, the pretrained tensors merged."""
+        self.model.init_weights(generator)
+        return 0
+
     def make_train_pipeline(self, shard_index: int = 0, num_shards: int = 1,
                             seed: int = 17,
                             pin_memory: bool = False) -> LmPipeline:

@@ -18,7 +18,7 @@ train/step.py:take_step runs. The global step (0-based, the restored one
 after a resume) goes into the task's training losses, where the
 Zipformer2's training dynamics read their schedules. A converted
 pretrained encoder (`encoder.config.pretrained_path`) is loaded over the
-seeded init (tasks/base.py:merge_pretrained_encoder).
+seeded init by the task's `init_weights` (tasks/base.py).
 
 Gradient accumulation (`trainer.accumulate_grad_batches` k > 1), as the
 JAX loop's optax.MultiSteps: the optimizer (with the clipping) is
@@ -74,7 +74,6 @@ from torch.profiler import record_function
 from ..decoding import reference_decoder
 from ..metrics import AsrMetric
 from ..optim import MultiSteps, OptimSetup
-from ..tasks.base import AsrTaskBase
 from ..utils.logging import get_logger
 from .checkpoint import CheckpointManager
 from .step import clip_value, take_step
@@ -164,8 +163,7 @@ class Trainer:
         self.seed = seed
         self.clip = clip_value(config)
         self.accum = int(tcfg.get("accumulate_grad_batches", 1) or 1)
-        task.model.init_weights(torch.Generator().manual_seed(seed))
-        if isinstance(task, AsrTaskBase) and task.merge_pretrained_encoder():
+        if task.init_weights(torch.Generator().manual_seed(seed)):
             log.info("pretrained encoder loaded from %s",
                      config["encoder"]["config"]["pretrained_path"])
         task.to(self.device)
@@ -211,9 +209,13 @@ class Trainer:
                      len(finetune_state))
         self.optimizer, self.schedule = OptimSetup(
             self.config["optim_setup"], model.named_parameters())
+        self.step_clip = self.clip
         if self.accum > 1:
+            # the clipping moves into MultiSteps: it clips the mean of the
+            # k micro-batches' gradients
             self.optimizer = MultiSteps(self.optimizer, self.accum,
                                         model.parameters(), self.clip)
+            self.step_clip = None
         restored = None
         if resume:
             mgr = self.ckpt if os.path.abspath(resume) == \
@@ -276,7 +278,7 @@ class Trainer:
         metrics = take_step(
             task.model, task.step_losses(batch, step // self.accum,
                                          self.generators(step)),
-            self.optimizer, self.clip if self.accum == 1 else None)
+            self.optimizer, self.step_clip)
         metrics["train_loss"] = metrics.pop("loss")
         return metrics
 

@@ -13,7 +13,8 @@ Conformer, augmentation off but speed perturbation):
   rounding gives), the optimizer's count 2; a run stopped between two
   micro-batches (step 3) resumes to the same step-4 weights bitwise;
 - global CMVN statistics computed by build_task (`callbacks.global_cmvn.
-  apply` with no statistics file): its cmvn.json equals, byte for byte,
+  apply` with no statistics file), over 10 train batches: its cmvn.json
+  equals, byte for byte,
   the file of the JAX package's `compute_cmvn_stats` over the same
   featurized batches, and each package loads the other's file.
 """
@@ -122,7 +123,10 @@ def test_accumulation_matches_jax_multisteps(corpus, tmp_path, optimizer):
                again.task.model.state_dict().items())
 
 
-def test_global_cmvn_computed_like_jax(corpus, tmp_path):
+def test_global_cmvn_computed_like_jax(corpus, tmp_path, monkeypatch):
+    # more batches than one epoch of the corpus holds (4), fewer than the
+    # 200 the entry reads by default
+    monkeypatch.setattr(build_task, "CMVN_BATCHES", 10)
     cfg = ctc_config(corpus, str(tmp_path / "tasks" / "cmvn"))
     cfg["callbacks"]["global_cmvn"] = {"apply": True}
     path = tmp_path / "cmvn.yaml"
