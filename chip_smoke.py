@@ -144,6 +144,29 @@ Phases (any failed check raises and the script exits non-zero):
      every B2 call of the run held to the plain version; and
      accumulate_grad_batches 2 over 4 micro-batches, card = CPU (losses,
      AdamW moments, parameters, count 2);
+ 17. (deployment) on phase 10's checkpoints and corpus: (a) the greedy
+     and beam flagship YAMLs with decoding.config.int8=true through
+     inference's main (reports written); on seeded weights the int8
+     tokens card = CPU from the same f32 encoder output (count printed,
+     > 0), the int8 product (torch._int_mm on padded operands) card =
+     CPU exactly at the decode's rows (B, B x W) and at rows <= 16, the
+     utterances whose int8 tokens equal f32's, an int8 and an f32 greedy
+     frame step timed (device and host); (b) conformer_rnnt.yaml's LSTM
+     predictor (512 x 2), seeded, int8 greedy and beam card = CPU with
+     the card's transcendental functions (the utterances equal with the
+     CPU's own printed: requantizing the LSTM state turns their last-ulp
+     differences into int8 flips, which move near-tied beams); (c)
+     ctc_lexicon_beam_search (the corpus's words, a unigram ARPA LM
+     written here, the C++ runtime built by g++ at first use) on phase
+     13's CTC checkpoint, texts card = CPU from the log-probs on seeded
+     weights, log-probs within ENC_TOL; (d) task.module_export (encoder at
+     1 x 2000 frames, predictor, joiner, units.txt, weights.int8.npz) and
+     build_task's callbacks.frontend_save (B=1 x 30 s), reloaded and run:
+     12 B1 and 1 B2 launches inside them, outputs = eager within ENC_TOL,
+     B1 and B2 device times eager against exported; (e) the model-average
+     CLI = inference's chkpt_aver average, bitwise. Every run on the card
+     has its launches counted, every B1 call held as check_weights holds
+     it and every B2 call as check_mel;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -170,11 +193,14 @@ phase 14's, and under "task_families" phase 15's per family (cif, ssl,
 nnlm: launches, per step, CIF's per test batch, the B2 calls checked and
 their worst error), and under "ctc_encoders" phase 16's (emformer:
 launches, per step, per test batch, calls checked, worst error; wav2vec2:
-0; the CMVN run's and the accumulation run's launches).
+0; the CMVN run's and the accumulation run's launches), and under
+"deploy" phase 17's (launches over the phase, calls held, worst error,
+launches inside the reloaded exported programs).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import copy
 import dataclasses
 import importlib
 import importlib.util
@@ -2371,7 +2397,9 @@ def phase_conformer_step(card, out):
         f"{[round(r['loss'], 4) for r in losses]}; all {n_par} "
         f"parameter tensors changed (decoder head included)", card)
 
-    parts = conformer_step_parts(ts, batch, card)
+    parts, held_parts = held_run("conformer step parts",
+                                 lambda: conformer_step_parts(ts, batch,
+                                                              card))
     spans_names = SPANS + ("ctc_loss",)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2397,7 +2425,7 @@ def phase_conformer_step(card, out):
         "top_device_ops": rows[:30]}
     del ts, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, held_parts
 
 
 def phase_conformer(card, report, tmp, trained):
@@ -2447,7 +2475,10 @@ def phase_conformer(card, report, tmp, trained):
     assert _same_state(saved["optimizer"], trainer2.optimizer.state_dict()), \
         "restored AdamW state differs from the checkpoint"
     assert saved["optimizer"]["count"] == CONF_STEPS
-    trainer2.fit(**fit_kw)
+    # every run below on the card: launches counted, B2 calls held
+    held = {}
+    _, held["ctc_resume"] = held_run("conformer ctc resume",
+                                     lambda: trainer2.fit(**fit_kw))
     trainer2.close()
     assert [h["step"] for h in trainer2.history] == list(
         range(CONF_STEPS + 1, CONF_STEPS + CONF_RESUME_STEPS + 1))
@@ -2457,10 +2488,13 @@ def phase_conformer(card, report, tmp, trained):
         f"took steps {[h['step'] for h in trainer2.history]}, eval "
         f"{trainer2.last_eval}; {clipped} of {len(rec['metrics_lines'])} "
         f"logged steps clipped (grad_norm > {trainer.clip})", card)
+    parts, held["ctc_step_parts"] = held_run(
+        "conformer ctc step parts", lambda: ctc_step_parts(trainer2, card))
     rec.update(resume_eval=trainer2.last_eval, logged_clipped=clipped,
-               step_parts=ctc_step_parts(trainer2, card))
+               step_parts=parts)
     out["ctc_train"] = rec
     ctc_train_cfg = os.path.join(workdir, os.path.basename(CTC_CFG))
+    out["ctc_train_config"] = ctc_train_cfg
     del trainer, trainer2
 
     # (b) CTC decoding with (a)'s checkpoints: greedy and prefix beam (8)
@@ -2516,7 +2550,8 @@ def phase_conformer(card, report, tmp, trained):
     torch.cuda.empty_cache()
 
     # (c) the pruned RNN-T + CTC step at full width, bench.py's shape
-    step_launches = phase_conformer_step(card, out)
+    step_launches, held["pruned_step_parts"] = phase_conformer_step(card,
+                                                                    out)
 
     # (d) the same YAML through build_task, then its inference YAML
     argv = train_argv(CONF_CFG, "pruned",
@@ -2576,19 +2611,27 @@ def phase_conformer(card, report, tmp, trained):
     # TrainStep step and per eval or test batch
     runs = (out["ctc_train"], out["pruned_train"])
     fbank_total = sum(r["launches"]["fbank"] for r in runs) + \
-        step_launches["fbank"] + infer_fbank
+        step_launches["fbank"] + infer_fbank + \
+        sum(h["launches"]["fbank"] for h in held.values())
     b1_total = sum(r["launches"]["attn_weights"] for r in runs) + \
-        step_launches["attn_weights"]
+        step_launches["attn_weights"] + \
+        sum(h["launches"]["attn_weights"] for h in held.values())
     assert b1_total == 0
-    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank
-    worst = max([r["fbank_max_abs_err"] for r in runs] + [infer_worst])
+    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank + \
+        sum(h["calls_checked"] for h in held.values())
+    worst = max([r["fbank_max_abs_err"] for r in runs] + [infer_worst]
+                + [h["max_abs_err"] for h in held.values()])
     wall = time.perf_counter() - t_phase
     log(f"conformer phase: {wall:.1f} s; launches B1 0, B2 {fbank_total} "
         f"(2 per build_task step, 1 per TrainStep step, 1 per eval or test "
-        f"batch: {infer_fbank} over {infer_batches} test batches); "
-        f"{checked} B2 calls of the build_task and inference runs within "
-        f"check_mel (worst log error {worst:.3g})", card)
+        f"batch: {infer_fbank} over {infer_batches} test batches; the "
+        f"resume and step parts: " + ", ".join(
+            f"{k} {h['launches']['fbank']}" for k, h in held.items())
+        + f"); {checked} B2 calls of the build_task, inference, resume and "
+        f"step-parts runs within check_mel (worst log error {worst:.3g})",
+        card)
     out["wall_s"] = wall
+    out["held_runs"] = held
     report["conformer"] = out
 
     def per_step(kernel):
@@ -2906,7 +2949,9 @@ def phase_rnnt_step(card, out):
         f"{peak / 2**30:.2f} GiB, launches per step (0, 1), losses "
         f"{[round(r['loss'], 4) for r in losses]}; all {n_par} parameter "
         f"tensors changed", card)
-    parts, shape = rnnt_step_parts(ts, batch, card)
+    (parts, shape), held = held_run(
+        "rnnt step parts", lambda: rnnt_step_parts(ts, batch, card))
+    out["rnnt_step_parts_held"] = held
     torch.cuda.reset_peak_memory_stats()
     from torch.profiler import ProfilerActivity, profile
     names = SPANS + ("rnnt_loss",)
@@ -3028,13 +3073,18 @@ def phase_rnnt_family(card, report, tmp, trained):
     out["decode"] = decode
 
     runs = list(fam_runs.values())
+    held = out["rnnt_step_parts_held"]
     b1_total = run_launches["attn_weights"] + sum(
         r["launches"]["attn_weights"] for r in runs) + sum(
-        s["attn_weights"] for s in step_launches.values())
+        s["attn_weights"] for s in step_launches.values()) + \
+        held["launches"]["attn_weights"]
     fbank_total = run_launches["fbank"] + sum(
         r["launches"]["fbank"] for r in runs) + sum(
-        s["fbank"] for s in step_launches.values()) + infer_fbank
-    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank
+        s["fbank"] for s in step_launches.values()) + infer_fbank + \
+        held["launches"]["fbank"]
+    checked = sum(r["fbank_calls_checked"] for r in runs) + infer_fbank + \
+        held["calls_checked"]
+    infer_worst = max(infer_worst, held["max_abs_err"])
     wall = time.perf_counter() - t_phase
     log(f"rnnt family phase: {wall:.1f} s; launches B1 {b1_total} (the "
         f"heldout runs: {RUN_LAYERS} per step and per eval batch; 0 in the "
@@ -3042,8 +3092,8 @@ def phase_rnnt_family(card, report, tmp, trained):
         f"shapes with every B1 and B2 call against the plain versions "
         f"(worst B1 {run_worst['attn_weights']:.3g}, B2 log "
         f"{run_worst['fbank']:.3g}); {checked} B2 calls of the Conformer "
-        f"runs within check_mel (worst log error {infer_worst:.3g} in "
-        f"inference)", card)
+        f"runs, the rnnt step parts' {held['calls_checked']} included, "
+        f"within check_mel (worst log error {infer_worst:.3g})", card)
     out["wall_s"] = wall
     report["rnnt_family"] = out
 
@@ -3479,6 +3529,14 @@ def phase_task_families(card, report, tmp, trained):
                            f"trainer.log_interval={CONF_LOG_EVERY}",
                            f"trainer.val_check_interval={steps}", *extra)
 
+    # the resumes and step parts of each family, through held_run: their
+    # launches counted and every B2 call held to the plain version
+    held = {"cif": {}, "ssl": {}, "nnlm": {}}
+
+    def held_fam(name, run, fn):
+        result, held[name][run] = held_run(f"{name} {run}", fn)
+        return result
+
     # (a) CIF: build_task, resume, inference, card = CPU, the step's parts
     argv = argv_of(CIF_CFG, CIF_STEPS)
     trainer, rec = conformer_train_run(card, "cif", CIF_CFG, argv, CIF_STEPS,
@@ -3486,15 +3544,16 @@ def phase_task_families(card, report, tmp, trained):
     task = trainer.task
     assert isinstance(task, CifTask) and trainer.clip == 5.0
     at_width(task.model.encoder.config, CIF_CFG)
-    rec["resume_eval"] = fam_resume(card, "cif", argv, CIF_STEPS)
+    rec["resume_eval"] = held_fam("cif", "resume", lambda: fam_resume(
+        card, "cif", argv, CIF_STEPS))
     cif_train_cfg = os.path.join(trainer.workdir, os.path.basename(CIF_CFG))
     rng = np.random.default_rng(SEED + 51)
     pcm, lens, labels, lab_lens = train_pcm(rng, B_TRAIN, 2, TRAIN_SECS,
                                             TRAIN_U, 128)
     batch = tuple(torch.from_numpy(x).cuda()
                   for x in (pcm, lens, labels, lab_lens))
-    rec["step_parts"] = cif_step_parts(task, trainer.optimizer, trainer.clip,
-                                       batch, card)
+    rec["step_parts"] = held_fam("cif", "step_parts", lambda: cif_step_parts(
+        task, trainer.optimizer, trainer.clip, batch, card))
     out["cif_train"] = rec
     del trainer, task, batch
     torch.cuda.empty_cache()
@@ -3537,9 +3596,10 @@ def phase_task_families(card, report, tmp, trained):
     at_width(task.model.encoder.config, SSL_CFG)
     assert (trainer.ckpt.monitor, trainer.ckpt.mode) == ("acc", "max")
     assert all(set(m) == {"val_loss", "acc"} for m in rec["evals"].values())
-    rec["resume_eval"] = fam_resume(card, "ssl", argv, SSL_STEPS)
-    rec["step_parts"] = ssl_step_parts(task, trainer.optimizer, trainer.clip,
-                                       card)
+    rec["resume_eval"] = held_fam("ssl", "resume", lambda: fam_resume(
+        card, "ssl", argv, SSL_STEPS))
+    rec["step_parts"] = held_fam("ssl", "step_parts", lambda: ssl_step_parts(
+        task, trainer.optimizer, trainer.clip, card))
     ssl_ckpt = trainer.ckpt.path(SSL_STEPS)
     ssl_encoder = dataclasses.asdict(task.model.encoder.config)
     out["ssl_train"] = rec
@@ -3566,7 +3626,8 @@ def phase_task_families(card, report, tmp, trained):
     log(f"rnn_lm ({lm_dims}): {rec['median_ms']:.2f} ms per step, tokens/s "
         f"{[round(x, 1) for x in tokens_s]}", card)
     rec["tokens_per_s"] = tokens_s
-    rec["resume_eval"] = fam_resume(card, "rnn_lm", argv, LM_STEPS)
+    rec["resume_eval"] = held_fam("nnlm", "resume", lambda: fam_resume(
+        card, "rnn_lm", argv, LM_STEPS))
     lm_dir = trainer.ckpt.directory
     out["lm_train"] = rec
     del trainer
@@ -3577,13 +3638,21 @@ def phase_task_families(card, report, tmp, trained):
     runs = {"cif": out["cif_train"], "ssl": out["ssl_train"],
             "nnlm": out["lm_train"]}
     worst = max([r["fbank_max_abs_err"] for r in runs.values()]
-                + [cif_worst])
+                + [cif_worst] + [h["max_abs_err"] for f in held.values()
+                                 for h in f.values()])
     wall = time.perf_counter() - t_phase
+
+    def held_b2(name):
+        return sum(h["launches"]["fbank"] for h in held[name].values())
+
     log(f"task families phase: {wall:.1f} s; launches B1 0; B2 cif "
         f"{runs['cif']['launches']['fbank']} + {cif_infer['fbank']} in "
-        f"inference, ssl {runs['ssl']['launches']['fbank']}, nnlm 0; every "
-        f"B2 call within check_mel (worst log error {worst:.3g})", card)
+        f"inference + {held_b2('cif')} in the resume and step parts, ssl "
+        f"{runs['ssl']['launches']['fbank']} + {held_b2('ssl')} in the "
+        f"resume and step parts, nnlm {held_b2('nnlm')}; every B2 call "
+        f"within check_mel (worst log error {worst:.3g})", card)
     out["wall_s"] = wall
+    out["held_runs"] = held
     report["task_families"] = out
 
     steps = {"cif": CIF_STEPS, "ssl": SSL_STEPS, "nnlm": LM_STEPS}
@@ -3600,6 +3669,13 @@ def phase_task_families(card, report, tmp, trained):
         if kernel == "fbank":
             rec.update(calls_checked=r["fbank_calls_checked"],
                        max_abs_err=r["fbank_max_abs_err"])
+        rec["launches"] += sum(h["launches"][kernel]
+                               for h in held[name].values())
+        if kernel == "fbank":
+            rec["calls_checked"] += sum(h["calls_checked"]
+                                        for h in held[name].values())
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                h["max_abs_err"] for h in held[name].values()])
         if name == "cif":
             rec["launches"] += cif_infer[kernel]
             rec["launches_per_test_batch"] = \
@@ -4252,6 +4328,516 @@ def phase_ctc_encoders(card, report, tmp, trained):
     return {"attn_weights": b1, "fbank": b2}
 
 
+# ------------------------------------------------------------ phase 17
+DEPLOY_INFER = {"greedy": CFG, "beam": BEAM_CFG}
+INT8_ROWS = (1, 5, 16)           # rows at or under torch._int_mm's CUDA limit
+LSTM_B, LSTM_T = 16, 120         # the LSTM int8 check's encoder output
+FRAME_STEPS = 50                 # frame steps timed (int8 and f32)
+EXPORT_FRAMES = 2000             # module_export_config.max_frames default
+EXPORT_PASSES = 5                # frontend + encoder passes traced
+
+
+def held_calls(label, fn):
+    """`fn()` through counted_main: its launches counted, every B1 call
+    held as check_weights holds it and every B2 call as check_mel;
+    returns (its result, its record: launches, calls checked and worst
+    error by kernel)."""
+    result, _, launches, _, calls = counted_main(lambda _: fn(), None)
+    try:
+        with torch.no_grad():
+            b1 = [check_weights(f"{label} B1 call {i}", w, *a)
+                  for i, (a, w) in enumerate(calls["attn_weights"])]
+        calls["attn_weights"].clear()
+    except BaseException:
+        calls.close()
+        raise
+    assert len(b1) == launches["attn_weights"], (label, len(b1), launches)
+    n2, worst2, _ = checked_calls(calls, label, launches["fbank"])
+    return result, {"launches": launches,
+                    "calls_checked": {"attn_weights": len(b1),
+                                      "fbank": n2},
+                    "max_abs_err": {"attn_weights": max(b1, default=0.0),
+                                    "fbank": worst2}}
+
+
+def device_busy_ms(call, iters):
+    """Device time, ms, of one `call`: the summed kernel durations of
+    `iters` calls in a torch.profiler trace, over `iters`."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
+def frame_step_timing(join, pred_step, pred_init, enc, card, what):
+    """One greedy frame step at the batch of `enc` (B, D): the joiner,
+    the argmax and the predictor step; device time (profiler) and host
+    time (synchronised before each call), ms."""
+    from speech2text_torch.tools.timing import host_ms
+    B = enc.shape[0]
+    state = pred_init(B, enc.device)
+    pred, state = pred_step(torch.zeros(B, dtype=torch.int64,
+                                        device=enc.device), state)
+
+    def step():
+        tok = torch.argmax(join(enc, pred[:, 0]), dim=-1)
+        return pred_step(tok, state)
+
+    with torch.no_grad():
+        dev = device_busy_ms(step, FRAME_STEPS)
+        host = host_ms(step, iters=FRAME_STEPS)
+    log(f"deploy greedy frame step ({what}, B={B}): device {dev:.4f} ms, "
+        f"host {host:.4f} ms", card)
+    return {"device_ms": dev, "host_ms": host}
+
+
+def int8_card_cpu(metric, model, cpu_model, enc, lens, what):
+    """Int8 decoding of the same f32 encoder output on the card and on
+    the CPU: identical tokens and counts; returns (tokens compared, the
+    card's session, the CPU's session, the card's tokens, counts)."""
+    from speech2text_torch.tasks.rnnt import Int8Decoding
+    card = Int8Decoding(metric, model)
+    cpu = Int8Decoding(metric, cpu_model)
+    with torch.no_grad():
+        tg, cg = card.decode(enc, lens)
+        tc, cc = cpu.decode(enc.cpu(), lens.cpu())
+    assert torch.equal(cg.cpu(), cc) and torch.equal(tg.cpu(), tc), \
+        f"{what}: int8 tokens differ between the card and the CPU"
+    return int(cc.sum()), card.session, cpu.session, tg, cg
+
+
+def int_mm_card_cpu(card_sess, cpu_sess, rows, what):
+    """torch._int_mm through quant.int_mm on the card against the CPU,
+    exactly, for each int8 weight of the sessions' joiner and predictor
+    and each row count; returns the products compared."""
+    from speech2text_torch import quant
+    gen = torch.Generator().manual_seed(SEED + 75)
+    pairs = [(w, cw) for (w, _), (cw, _) in zip(
+        [card_sess.joiner.enc, card_sess.joiner.pre, *card_sess.joiner.out],
+        [cpu_sess.joiner.enc, cpu_sess.joiner.pre, *cpu_sess.joiner.out])]
+    pairs.append((card_sess.predictor.out_w, cpu_sess.predictor.out_w))
+    n = 0
+    for w, cw in pairs:
+        assert w.is_quantized, what
+        for m in rows:
+            a = torch.randint(-127, 128, (m, w.q.shape[0]), generator=gen,
+                              dtype=torch.int8)
+            got = quant.int_mm(a.cuda(), w).cpu()
+            assert got.dtype == torch.int32 and torch.equal(
+                got, quant.int_mm(a, cw)), \
+                f"{what}: int8 product at {m} x {tuple(w.q.shape)} differs"
+            n += 1
+    return n
+
+
+def token_agreement(ta, ca, tb, cb):
+    """Utterances with identical token sequences, of all."""
+    same = sum(int(x) == int(y) and torch.equal(a[:int(x)], b[:int(y)])
+               for a, x, b, y in zip(ta.cpu(), ca.cpu(), tb.cpu(), cb.cpu()))
+    return same, len(ca)
+
+
+def write_lexicon(tmp, corpus):
+    """The synthetic corpus's transcript words as a word list and a
+    unigram ARPA LM over them; returns their paths."""
+    from speech2text_torch.data.manifest import iter_text, load_manifest
+    words = sorted({w for t in iter_text(load_manifest(
+        corpus["train_data"])) for w in t.split()})
+    os.makedirs(tmp, exist_ok=True)
+    word_list, arpa = os.path.join(tmp, "words.txt"), \
+        os.path.join(tmp, "lm.arpa")
+    with open(word_list, "w") as f:
+        f.write("".join(f"{w}\n" for w in words))
+    grams = [f"{-1.0 - 0.01 * i:.2f} {w} -0.1"
+             for i, w in enumerate(["<s>", "</s>"] + words)]
+    with open(arpa, "w") as f:
+        f.write(f"\\data\\\nngram 1={len(grams)}\n\n\\1-grams:\n"
+                + "\n".join(grams) + "\n\n\\end\\\n")
+    return word_list, arpa, len(words)
+
+
+def phase_deploy(card, report, tmp, trained):
+    """Phase 17: deployment on the card. (a) int8 decoding of the
+    flagship (phase 10's checkpoints, greedy and beam YAMLs with
+    decoding.config.int8=true) through inference's main; on seeded
+    weights the int8 tokens card = CPU on the same f32 encoder output,
+    the int8 product card = CPU exactly at the decode's rows and at rows
+    <= 16, agreement with f32 decoding, the greedy frame step int8 and
+    f32 timed; (b) conformer_rnnt.yaml's LSTM predictor (512 x 2) int8,
+    greedy and beam, card = CPU with the card's transcendental functions;
+    (c) ctc_lexicon_beam_search on phase
+    13's CTC checkpoint (the corpus's words, a unigram ARPA LM; the
+    runtime built with g++ at first use), texts card = CPU and log-probs
+    within ENC_TOL; (d) the flagship's encoder, predictor, joiner
+    (module_export) and frontend (build_task's frontend_save) exported,
+    reloaded and run: B1 and B2 launched inside them, outputs = eager's
+    within ENC_TOL, B1 and B2 device times against eager; (e) the
+    model-average CLI on phase 10's checkpoints = inference's average,
+    bitwise. Every run on the card is held (held_calls)."""
+    from speech2text_torch import build_task, inference
+    from speech2text_torch.config import load_config
+    from speech2text_torch.convert import to_flax
+    from speech2text_torch.export import load_exported, quantize_params
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.runtime_binding import CtcLexiconBeamDecoding
+    from speech2text_torch.tasks.ctc import CtcModel
+    from speech2text_torch.tasks.rnnt import (Int8Decoding, RnntModel,
+                                              decoding_of)
+    from speech2text_torch.tools import model_average
+    from speech2text_torch.tools.timing import kernel_durations_ms
+    from speech2text_torch.train.checkpoint import average_checkpoints
+    t_phase = time.perf_counter()
+    out, held = {}, {}
+    dtmp = os.path.join(tmp, "deploy")
+    train_cfg = os.path.join(trained["workdir"], os.path.basename(TRAIN_CFG))
+    corpus = trained["corpus"]
+
+    def argv(cfg, name, *extra):
+        args = ["--inference_config", cfg,
+                "--override", f"task.train_config={train_cfg}",
+                "--override", f"task.export_path={dtmp}/{name}",
+                "--override", f"testset.test_data={corpus['eval_data']}"]
+        for ov in extra:
+            args += ["--override", ov]
+        return args
+
+    # (a) int8 decoding of the flagship through inference's main
+    runs = {}
+    for name, cfg in DEPLOY_INFER.items():
+        runs[name], held[f"int8_{name}"] = held_calls(
+            f"deploy int8 {name}", lambda cfg=cfg, name=name: run_inference(
+                f"int8 {name}", argv(cfg, f"int8_{name}",
+                                     "decoding.config.int8=true"),
+                card, RUN_LAYERS))
+        assert isinstance(runs[name]["task"].decode_session, Int8Decoding)
+    task, dev = runs["greedy"]["task"], runs["greedy"]["device"]
+    batches = device_batches(task, dev)[:CONF_CPU_BATCHES]
+    seeded = RnntModel.from_config(runs["greedy"]["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(SEED + 70))
+    task.model.load_state_dict(seeded.state_dict())
+    cpu_model = seeded.eval()
+    metrics = {name: runs[name]["train_config"]["metric"]
+               for name in DEPLOY_INFER}
+
+    def seeded_checks():
+        n_tok = {k: 0 for k in metrics}
+        agree = {k: [0, 0] for k in metrics}
+        n_mm, sessions = 0, {}
+        with torch.no_grad():
+            for batch in batches:
+                enc, lens = task.model.encoder(*task.featurize(batch))
+                enc = enc.float()
+                for name, metric in metrics.items():
+                    n, card_s, cpu_s, t8, c8 = int8_card_cpu(
+                        metric, task.model, cpu_model, enc, lens,
+                        f"deploy int8 {name}")
+                    n_tok[name] += n
+                    sessions[name] = card_s
+                    tf, cf = decoding_of(dict(metric, int8=False),
+                                         task.model, None, 0.0).decode(
+                                             enc, lens)
+                    same, total = token_agreement(t8, c8, tf, cf)
+                    agree[name][0] += same
+                    agree[name][1] += total
+                    W = int(metric.get("beam_size", 1)) \
+                        if name == "beam" else 1
+                    rows = sorted({enc.shape[0], enc.shape[0] * W,
+                                   *INT8_ROWS})
+                    n_mm += int_mm_card_cpu(card_s, cpu_s, rows, name)
+        return n_tok, agree, n_mm, enc, sessions["greedy"]
+
+    (n_tok, agree, n_mm, enc, sess), held["int8_card_cpu"] = held_calls(
+        "deploy int8 card/CPU", seeded_checks)
+    assert all(n > 0 for n in n_tok.values()), n_tok
+    log(f"deploy int8 decoding: phase 10's checkpoints through inference "
+        f"(greedy WER {runs['greedy']['wer']:.4f}, beam "
+        f"{runs['beam']['wer']:.4f}); on seeded weights over "
+        f"{len(batches)} test batches int8 tokens identical on the card "
+        f"and the CPU from the same f32 encoder output: greedy "
+        f"{n_tok['greedy']}, beam {n_tok['beam']} tokens compared; "
+        f"{n_mm} int8 products card = CPU exactly (rows incl. "
+        f"{INT8_ROWS}); utterances with int8 tokens = f32 tokens: greedy "
+        f"{agree['greedy'][0]}/{agree['greedy'][1]}, beam "
+        f"{agree['beam'][0]}/{agree['beam'][1]}", card)
+    frame = enc[:, 0].contiguous()
+    model = task.model
+    steps = {"f32": frame_step_timing(
+        model.joiner_step, model.predictor_step, model.predictor.init_state,
+        frame, card, "f32"),
+        "int8": frame_step_timing(
+            sess.joiner.step, sess.predictor.step, sess.predictor.init_state,
+            frame, card, "int8")}
+    out["int8"] = {"wer": {k: r["wer"] for k, r in runs.items()},
+                   "launches": {k: r["launches"] for k, r in runs.items()},
+                   "card_cpu_tokens": n_tok, "int_mm_compared": n_mm,
+                   "int8_f32_same_utts": agree, "frame_step": steps}
+    del runs, task, seeded, cpu_model, batches, sess
+    torch.cuda.empty_cache()
+
+    # (b) the LSTM predictor (conformer_rnnt.yaml, 512 x 2), int8
+    cfg = load_config(RNNT_CFG)
+    lstm = RnntModel.from_config(cfg)
+    lstm.init_weights(torch.Generator().manual_seed(SEED + 71))
+    pc = lstm.predictor.config
+    assert (pc.num_lstm_layers, pc.lstm_hidden_dim) == (2, 512)
+    rng = np.random.default_rng(SEED + 71)
+    enc = torch.from_numpy(rng.standard_normal(
+        (LSTM_B, LSTM_T, lstm.joiner.config.input_dim)).astype(
+            np.float32)).cuda()
+    lens = torch.from_numpy(rng.integers(LSTM_T // 3, LSTM_T + 1,
+                                         LSTM_B)).cuda()
+    card_model = copy.deepcopy(lstm).cuda().eval()
+
+    def on_card(fn):
+        return lambda x, *a, **kw: fn(x.cuda(), *a, **kw).cpu()
+
+    def lstm_checks():
+        """Per method: the card's int8 tokens against the CPU's (the
+        utterances with equal tokens, printed), and against the CPU's
+        decode with the LSTM's and the joiner's transcendental functions
+        evaluated on the card, which must be identical."""
+        got = {}
+        for method in ("rnnt_greedy_search", "rnnt_beam_search"):
+            metric = {"decode_method": method, "int8": True}
+            card = Int8Decoding(metric, card_model)
+            cpu = Int8Decoding(metric, lstm.eval())
+            with torch.no_grad():
+                tg, cg = card.decode(enc, lens)
+                tc, cc = cpu.decode(enc.cpu(), lens.cpu())
+                pure = token_agreement(tg, cg, tc, cc)
+                pred, join = cpu.session.predictor, cpu.session.joiner
+                pred.sigmoid, pred.tanh = on_card(torch.sigmoid), \
+                    on_card(torch.tanh)
+                join.log_softmax = on_card(torch.log_softmax)
+                th, ch = cpu.decode(enc.cpu(), lens.cpu())
+            assert torch.equal(cg.cpu(), ch) and torch.equal(tg.cpu(), th), \
+                f"deploy lstm {method}: int8 tokens differ between the card " \
+                f"and the CPU with the card's transcendental functions"
+            got[method] = {"tokens": int(ch.sum()), "cpu_same_utts": pure}
+        return got
+
+    n_lstm, held["lstm"] = held_calls("deploy lstm int8", lstm_checks)
+    assert all(r["tokens"] > 0 for r in n_lstm.values()), n_lstm
+    g, b = n_lstm["rnnt_greedy_search"], n_lstm["rnnt_beam_search"]
+    log(f"deploy int8 LSTM predictor (conformer_rnnt.yaml, "
+        f"{pc.num_lstm_layers} x {pc.lstm_hidden_dim}, seeded) at "
+        f"B={LSTM_B} x T={LSTM_T}: tokens identical on the card and on the "
+        f"CPU with the card's sigmoid, tanh and log-softmax: greedy "
+        f"{g['tokens']}, beam {b['tokens']} compared; with the CPU's own, "
+        f"utterances identical: greedy {g['cpu_same_utts'][0]}/"
+        f"{g['cpu_same_utts'][1]}, beam {b['cpu_same_utts'][0]}/"
+        f"{b['cpu_same_utts'][1]}", card)
+    out["lstm_card_cpu_tokens"] = n_lstm
+    del lstm, card_model, enc
+    torch.cuda.empty_cache()
+
+    # (c) the lexicon CTC beam on phase 13's CTC checkpoint
+    word_list, arpa, n_words = write_lexicon(f"{dtmp}/lexicon", corpus)
+    t0 = time.perf_counter()
+    run, lex_worst = conformer_inference(card, "ctc_lexicon", recipe_infer_argv(
+        CTC_INFER["prefix_beam"], f"{dtmp}/lexicon_infer",
+        report["conformer"]["ctc_train_config"], corpus) + [
+            "--override", "decoding.type=ctc_lexicon_beam_search",
+            "--override", f"decoding.config.word_list={word_list}",
+            "--override", f"decoding.config.arpa_lm={arpa}"])
+    lex_wall = time.perf_counter() - t0
+    held["lexicon_inference"] = {
+        "launches": run["launches"],
+        "calls_checked": {"attn_weights": 0,
+                          "fbank": run["launches"]["fbank"]},
+        "max_abs_err": {"attn_weights": 0.0, "fbank": lex_worst}}
+    task, dev = run["task"], run["device"]
+    assert isinstance(task.decode_session, CtcLexiconBeamDecoding)
+    batches = device_batches(task, dev)[:CONF_CPU_BATCHES]
+    seeded = CtcModel.from_config(run["train_config"])
+    seeded.init_weights(torch.Generator().manual_seed(SEED + 72))
+    task.model.load_state_dict(seeded.state_dict())
+    cpu_model = seeded.eval()
+
+    def lexicon_checks():
+        n, worst = 0, 0.0
+        with torch.no_grad():
+            for batch in batches:
+                feats, lens = task.featurize(batch)
+                logits, out_lens = task.model(feats, lens)
+                lp = torch.log_softmax(logits, -1)
+                c_logits, c_lens = cpu_model(feats.cpu(), lens.cpu())
+                c_lp = torch.log_softmax(c_logits, -1)
+                assert torch.equal(out_lens.cpu(), c_lens)
+                worst = max(worst, check_close(
+                    "deploy lexicon log-probs", lp.cpu(), c_lp, **ENC_TOL))
+                got = task.decode_session.decode(lp, out_lens)
+                want = task.decode_session.decode(c_lp, c_lens)
+                assert got == want, "deploy lexicon: texts differ between " \
+                    "the card's and the CPU's log-probs"
+                n += sum(len(t.split()) for t in want)
+        return n, worst
+
+    (n_words_cmp, lp_err), held["lexicon_card_cpu"] = held_calls(
+        "deploy lexicon card/CPU", lexicon_checks)
+    assert n_words_cmp > 0, "deploy lexicon: no word compared"
+    log(f"deploy ctc_lexicon_beam_search ({n_words} words, unigram ARPA LM,"
+        f" beam 8) on phase 13's checkpoint: inference {lex_wall:.2f} s "
+        f"(the g++ build of the runtime at first use included), corpus WER "
+        f"{run['wer']:.4f}; on seeded weights texts identical from the "
+        f"card's and the CPU's log-probs over {len(batches)} test batches: "
+        f"{n_words_cmp} words compared, log-probs within {ENC_TOL} (worst "
+        f"{lp_err:.3g})", card)
+    out["lexicon"] = {"wer": run["wer"], "wall_s": lex_wall,
+                      "words_compared": n_words_cmp,
+                      "log_prob_max_abs_err": lp_err}
+    del run, task, seeded, cpu_model, batches
+    torch.cuda.empty_cache()
+
+    # (d) module export and the frontend callback, reloaded on the card
+    export_run, held["export_inference"] = held_calls(
+        "deploy module_export", lambda: run_inference(
+            "module_export", argv(CFG, "export", "task.module_export=true"),
+            card, RUN_LAYERS))
+    edir = f"{dtmp}/export"
+    for name in ("encoder.pt2", "predictor.pt2", "joiner.pt2", "units.txt",
+                 "weights.int8.npz"):
+        assert os.path.getsize(os.path.join(edir, name)) > 0, name
+    task = export_run["task"]
+    flat = dict(np.load(os.path.join(edir, "weights.int8.npz")))
+    want = quantize_params(to_flax(task.model))
+    assert sorted(flat) == sorted(want) and all(
+        np.array_equal(flat[k], want[k]) for k in want), \
+        "weights.int8.npz is not quantize_params of the model"
+    fe_args = ["--training_config", train_cfg,
+               "--override", f"task.export_path={dtmp}/frontend",
+               "--override", "tokenizer.apply_train=false",
+               "--override", "callbacks.frontend_save=true"]
+    trainer, _ = build_task.prepare(fe_args)
+    trainer.close()
+    fe_path = os.path.join(trainer.workdir, "frontend.pt2")
+    del trainer
+    programs = {k: load_exported(os.path.join(edir, f"{k}.pt2"))
+                for k in ("encoder", "predictor", "joiner")}
+    programs["frontend"] = load_exported(fe_path)
+    eval_rows = [json.loads(x) for x in open(corpus["eval_data"])]
+    from speech2text_torch.data.audio import read_wav
+    wav, sr = read_wav(max(eval_rows, key=lambda r: r["duration"])[
+        "audio_filepath"])
+    n_max = 30 * sr
+    pcm = torch.zeros((1, n_max), device="cuda")
+    pcm[0, :len(wav)] = torch.from_numpy(wav).cuda()
+    pcm_len = torch.tensor([len(wav)], dtype=torch.int32, device="cuda")
+
+    def exported_pass(fe, encoder):
+        feats, lens = fe(pcm, pcm_len)
+        feats = feats[:, :EXPORT_FRAMES].contiguous()
+        lens = torch.clamp(lens, max=EXPORT_FRAMES)
+        return feats, lens, *encoder(feats, lens)
+
+    with torch.no_grad():
+        eager = exported_pass(task.frontend, task.model.encoder)
+    def exported_run():
+        with torch.no_grad():
+            return exported_pass(programs["frontend"], programs["encoder"])
+
+    (feats, f_lens, e_out, e_lens), held["exported"] = held_calls(
+        "deploy exported frontend + encoder", exported_run)
+    rec = held["exported"]["launches"]
+    assert rec == {"attn_weights": RUN_LAYERS, "fbank": 1}, rec
+    errs = {"frontend": check_close("deploy exported frontend", feats,
+                                    eager[0], **ENC_TOL),
+            "encoder": check_close("deploy exported encoder", e_out.float(),
+                                   eager[2].float(), **ENC_TOL)}
+    assert torch.equal(f_lens, eager[1]) and torch.equal(e_lens, eager[3])
+    with torch.no_grad():
+        tok = torch.tensor([7], device="cuda")
+        state = task.model.predictor.init_state(1, "cuda")
+        p_want = task.model.predictor_step(tok, state)
+        p_got = programs["predictor"](tok, state)
+        errs["predictor"] = max(check_close(
+            "deploy exported predictor", g.float(), w.float(), **ENC_TOL)
+            for g, w in zip((p_got[0], p_got[1]), (p_want[0], p_want[1])))
+        frame = e_out[:, 3].float()
+        j_want = task.model.joiner_step(frame, p_want[0][:, 0])
+        errs["joiner"] = check_close(
+            "deploy exported joiner", programs["joiner"](
+                frame, p_want[0][:, 0]), j_want, **ENC_TOL)
+    from torch.profiler import ProfilerActivity, profile
+    kernel_ms, records = {}, {}
+    for which, (fe, encoder) in (
+            ("eager", (task.frontend, task.model.encoder)),
+            ("exported", (programs["frontend"], programs["encoder"]))):
+        with torch.no_grad():
+            exported_pass(fe, encoder)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(EXPORT_PASSES):
+                    exported_pass(fe, encoder)
+                torch.cuda.synchronize()
+        durs = {k.name: kernel_durations_ms(prof, k.name)
+                for k in (aw.KERNEL, fb.KERNEL)}
+        kernel_ms[which] = {k: sum(v) / EXPORT_PASSES
+                            for k, v in durs.items()}
+        records[which] = {k: len(v) for k, v in durs.items()}
+    log(f"deploy export: module_export wrote encoder.pt2 (1 x "
+        f"{EXPORT_FRAMES} frames), predictor.pt2, joiner.pt2, units.txt, "
+        f"weights.int8.npz (= quantize_params of the model) in "
+        f"{export_run['wall_s']:.1f} s with the test loop; frontend_save "
+        f"wrote frontend.pt2 (B=1 x 30 s); reloaded, the frontend and "
+        f"encoder launched {rec['fbank']} B2 and {rec['attn_weights']} B1, "
+        f"all held; outputs against eager (worst): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; kernel device ms per pass (a trace of {EXPORT_PASSES}) eager "
+        f"/ exported: B1 {kernel_ms['eager']['attn_weights']:.4f} / "
+        f"{kernel_ms['exported']['attn_weights']:.4f}, B2 "
+        f"{kernel_ms['eager']['fbank']:.4f} / "
+        f"{kernel_ms['exported']['fbank']:.4f} (kernel records "
+        f"{records})", card)
+    out["export"] = {"wall_s": export_run["wall_s"], "max_abs_err": errs,
+                     "kernel_ms": kernel_ms, "kernel_records": records}
+    del export_run, task, programs
+    torch.cuda.empty_cache()
+
+    # (e) the model-average CLI on phase 10's checkpoints
+    ckpt_dir = os.path.join(trained["workdir"], "checkpoints")
+    k = int(load_config(CFG)["task"]["aver_best_k"])
+    path = model_average.main(["--checkpoints_dir", ckpt_dir, "--best_k",
+                               str(k), "--output", f"{dtmp}/averaged"])
+    got = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    want = average_checkpoints(ckpt_dir, best_k=k)
+    assert got.keys() == want.keys() and all(
+        torch.equal(got[n], want[n]) for n in want), \
+        "the averaged checkpoint differs from inference's average"
+    log(f"deploy model_average: best {k} of phase 10's checkpoints -> "
+        f"{path}, {len(want)} tensors bitwise equal to inference's "
+        f"chkpt_aver average", card)
+
+    wall = time.perf_counter() - t_phase
+    totals = {kern: {
+        "launches": sum(h["launches"][kern] for h in held.values()),
+        "calls_checked": sum(h["calls_checked"][kern]
+                             for h in held.values()),
+        "max_abs_err": max(h["max_abs_err"][kern] for h in held.values())}
+        for kern in ("attn_weights", "fbank")}
+    for kern, t in totals.items():
+        assert t["calls_checked"] == t["launches"], (kern, t)
+    log(f"deploy phase: {wall:.1f} s; launches B1 "
+        f"{totals['attn_weights']['launches']}, B2 "
+        f"{totals['fbank']['launches']}, every call held (worst B1 "
+        f"{totals['attn_weights']['max_abs_err']:.3g}, B2 log "
+        f"{totals['fbank']['max_abs_err']:.3g}); by run: " + ", ".join(
+            f"{name} {h['launches']['attn_weights']}/"
+            f"{h['launches']['fbank']}" for name, h in held.items()), card)
+    out.update(wall_s=wall, held_runs=held)
+    report["deploy"] = out
+    return {kern: dict(t, exported_launches=held["exported"]["launches"][
+        kern]) for kern, t in totals.items()}
+
+
 def metrics_of(workdir):
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -4397,6 +4983,7 @@ def main(argv):
         family = phase_rnnt_family(card, report, tmp, run)
         families = phase_task_families(card, report, tmp, run)
         encoders = phase_ctc_encoders(card, report, tmp, run)
+        deploy = phase_deploy(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -4424,7 +5011,8 @@ def main(argv):
              conformer=conformer["attn_weights"],
              rnnt_family=family["attn_weights"],
              task_families=families["attn_weights"],
-             ctc_encoders=encoders["attn_weights"]),
+             ctc_encoders=encoders["attn_weights"],
+             deploy=deploy["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -4441,11 +5029,13 @@ def main(argv):
              stream=stream["fbank"], conformer=conformer["fbank"],
              rnnt_family=family["fbank"],
              task_families=families["fbank"],
-             ctc_encoders=encoders["fbank"]),
+             ctc_encoders=encoders["fbank"], deploy=deploy["fbank"]),
     ]
     for k in kernels:
-        paths = ("train_run", "infer", "rnnt_family") + (
+        paths = ("train_run", "infer", "rnnt_family", "deploy") + (
             ("stream", "conformer") if k["name"] == "fbank" else ())
+        assert k["deploy"]["exported_launches"] > 0, \
+            f"{k['name']} never launched inside the exported programs"
         for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"

@@ -25,8 +25,10 @@ JAX package's JSON format and loaded.
 
 Runs on `cuda` unless `--device cpu` or the YAML's `trainer.platform:
 cpu` asks for the CPU; with no CUDA device and no such request it raises
-before it writes anything. The frontend export callback is not ported:
-asking for it raises.
+before it writes anything. With `callbacks.frontend_save` the fbank
+frontend is exported on that device as `<workdir>/frontend.pt2`
+(export.py:export_frontend, B=1 × 30 s), as the JAX package's
+build_task exports it before training.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from .config import dumps, load_config, override
 from .data.frontend import dequant_pcm
+from .export import export_frontend
 from .models.cmvn import GlobalCmvn, compute_cmvn_stats
 from .tasks.base import Featurizer
 from .tasks.factory import TaskFactory
@@ -112,9 +115,6 @@ def prepare(argv: Optional[List[str]] = None
     task_section = config["task"]
     task_cls = TaskFactory(task_section["type"])
     cb = config.get("callbacks") or {}
-    if cb.get("frontend_save"):
-        raise NotImplementedError("the frontend export callback is not "
-                                  "ported")
 
     workdir = os.path.join(task_section["export_path"], task_section["name"])
     os.makedirs(workdir, exist_ok=True)
@@ -143,6 +143,8 @@ def prepare(argv: Optional[List[str]] = None
             compute_cmvn_stats(cmvn_feature_batches(task, device)).save(path)
         task.cmvn = GlobalCmvn.from_file(path)
         log.info("global CMVN loaded from %s", path)
+    if cb.get("frontend_save"):
+        export_frontend(task.frontend.to(device), workdir)
     finetune_state = load_finetune(config.get("finetune") or {})
     trainer = Trainer(task, config, workdir, seed=seed, device=device)
     return trainer, dict(resume=config.get("resume"),

@@ -39,7 +39,7 @@ is zero.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,13 +143,19 @@ def flax_to_state_dict(params: Dict[str, Any],
     return out
 
 
-def to_flax(model: nn.Module) -> Dict[str, Any]:
+def to_flax(model: nn.Module,
+            tensors: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Dict[str, Any]:
     """The inverse: `model`'s parameters as a flax tree of f32 numpy
     arrays, in the layout `flax_to_state_dict` reads (an `nn.LSTM` as
-    flax's `rnns_{i}/cell` OptimizedLSTMCell leaves)."""
+    flax's `rnns_{i}/cell` OptimizedLSTMCell leaves). `tensors` (default:
+    the state_dict) are tensors named and shaped as `model`'s, such as
+    its gradients, mapped the same way."""
     tree: Dict[str, Any] = {}
     kinds = {name: type(m).__name__ for name, m in model.named_modules()}
-    for key, value in model.state_dict().items():
+    if tensors is None:
+        tensors = model.state_dict()
+    for key, value in tensors.items():
         parts = key.split(".")
         owner, last = ".".join(parts[:-1]), parts[-1]
         leaf = value.detach().cpu().float().numpy()

@@ -53,6 +53,12 @@ class Tokenizer(abc.ABC):
     def sos_eos_id(self) -> int:
         return len(self.labels) - 1
 
+    def export_units(self, export_filename: str) -> None:
+        """`<label> <id>` per line, the units file of an export."""
+        with open(export_filename, "w") as f:
+            for i, unit in enumerate(self.labels):
+                f.write(f"{unit} {i}\n")
+
     def encode(self, text: str) -> np.ndarray:
         toks = self.encode_as_tokens(text)
         ids = [self._index.get(t, self._index[UNK]) for t in toks]

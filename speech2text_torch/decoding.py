@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .data.tokenizer import Tokenizer
+from .runtime_binding import CtcLexiconBeamDecoding
 
 NEG_INF = -1e30
 # greedy decoding's state between frames: (predictor state, predictor
@@ -487,7 +488,8 @@ def build_decoding(metric: Dict[str, Any],
                    joiner_step: Optional[Callable] = None,
                    lm_step: Optional[Callable] = None,
                    lm_init_state: Optional[Callable] = None,
-                   lm_weight: float = 0.0):
+                   lm_weight: float = 0.0,
+                   tokenizer: Optional[Tokenizer] = None):
     """The decoder a config's `metric` section asks for: over log-probs,
     `ctc_greedy_search`, and `ctc_prefix_beam_search` with `beam_size`
     and `cand_size` (default 8 each; tasks/ctc.py); over encoder frames
@@ -495,11 +497,18 @@ def build_decoding(metric: Dict[str, Any],
     `max_token_step`, and `rnnt_beam_search` with `beam_size` (default
     4), `cutoff_top_k` (default 4) and the optional fusion LM
     (tasks/rnnt.py:BaseRnntTask); over the CIF task's log-probs,
-    `cif_greedy_search`. `ctc_lexicon_beam_search` (the C++ runtime's
-    decoder) and any other method raise NotImplementedError."""
+    `cif_greedy_search`; and `ctc_lexicon_beam_search`, the C++ runtime's
+    lexicon beam (runtime_binding.py) over the words of
+    `metric.word_list`, each spelled by `tokenizer`, with the optional
+    ARPA LM `arpa_lm`, `beam_size` (default 16), `lm_weight` (default
+    1.0) and `word_score` (default 0.0), as tasks/ctc.py of the JAX
+    package builds it; it returns texts. Any other method raises
+    NotImplementedError."""
     method = metric.get("decode_method", "rnnt_greedy_search")
     if method == "ctc_greedy_search":
         return CtcGreedyDecoding()
+    if method == "ctc_lexicon_beam_search":
+        return lexicon_decoding(metric, tokenizer)
     if method == "ctc_prefix_beam_search":
         return CtcPrefixBeamDecoding(
             beam_size=int(metric.get("beam_size", 8)),
@@ -519,5 +528,18 @@ def build_decoding(metric: Dict[str, Any],
         return CifGreedyDecoding()
     raise NotImplementedError(f"decode method {method!r} is not ported "
                               f"(ctc_greedy_search, ctc_prefix_beam_search,"
-                              f" rnnt_greedy_search, rnnt_beam_search, "
+                              f" ctc_lexicon_beam_search, "
+                              f"rnnt_greedy_search, rnnt_beam_search, "
                               f"cif_greedy_search)")
+
+
+def lexicon_decoding(metric: Dict[str, Any], tokenizer: Tokenizer):
+    """`ctc_lexicon_beam_search` of a `metric` section (build_decoding)."""
+    with open(metric["word_list"]) as f:
+        words = [w.strip() for w in f if w.strip()]
+    lexicon = {w: tokenizer.encode(w).tolist() for w in words}
+    return CtcLexiconBeamDecoding(
+        lexicon, arpa_path=metric.get("arpa_lm"),
+        beam_size=int(metric.get("beam_size", 16)),
+        lm_weight=float(metric.get("lm_weight", 1.0)),
+        word_score=float(metric.get("word_score", 0.0)))

@@ -22,7 +22,13 @@ All five of JAX's decode entries are ported: `pruned_rnnt_inference`,
 transducer, as JAX's), `ctc_inference` and `cif_inference` (the CIF
 task's free pass, `cif_greedy_search`); the `decoding` section's type and
 config, such as `beam_size` and `cand_size`, go into the training
-config's `metric`. `module_export` and `onnx_export` raise
+config's `metric` (so `--override decoding.config.int8=true` decodes a
+transducer with the int8 predictor and joiner). With `task.module_export`
+a transducer's encoder, predictor step and joiner step are exported
+before the test loop (export.py: `encoder.pt2`, `predictor.pt2`,
+`joiner.pt2`, at `module_export_config.max_frames`, default 2000) with
+`units.txt` and, unless `module_export_config.export_int8` is false,
+`weights.int8.npz`, into `task.export_path`. `onnx_export` raises
 NotImplementedError.
 """
 
@@ -38,8 +44,11 @@ import numpy as np
 import torch
 
 from .config import load_config, override
+from .convert import to_flax
+from .export import export_asr_modules, save_quantized
 from .metrics import AsrMetric, word_error_rate
 from .tasks.factory import TaskFactory
+from .tasks.rnnt import TransducerTask
 from .train.checkpoint import inference_weights
 from .train.loop import resolve_device
 from .utils.logging import get_logger, init_logging
@@ -136,9 +145,8 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                             {"platform": section.get("platform")})
     task_type = _INFER_TO_TRAIN[section["type"]]
     task_cls = TaskFactory(task_type)
-    for key in ("module_export", "onnx_export"):
-        if section.get(key):
-            raise NotImplementedError(f"task.{key} is not ported")
+    if section.get("onnx_export"):
+        raise NotImplementedError("task.onnx_export is not ported")
 
     workdir = section["export_path"]
     os.makedirs(workdir, exist_ok=True)
@@ -151,8 +159,25 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                       task_type, len(task.tokenizer),
                       section.get("checkpoints_dir") or "the training run",
                       device)
+    if section.get("module_export"):
+        module_export(task, workdir,
+                      infer_cfg.get("module_export_config") or {})
     return {"task": task, "device": device, "workdir": workdir,
             "infer_config": infer_cfg, "train_config": train_cfg}
+
+
+def module_export(task, workdir: str, config: Dict[str, Any]) -> None:
+    """The deployment files of `task.module_export` (inference.py:127-136
+    of the JAX package), written into `workdir`."""
+    if not isinstance(task, TransducerTask):
+        raise NotImplementedError(f"task.module_export exports a "
+                                  f"transducer, not {type(task).__name__}")
+    export_asr_modules(task, workdir,
+                       max_frames=int(config.get("max_frames", 2000)))
+    task.tokenizer.export_units(os.path.join(workdir, "units.txt"))
+    if config.get("export_int8", True):
+        save_quantized(to_flax(task.model),
+                       os.path.join(workdir, "weights.int8.npz"))
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:

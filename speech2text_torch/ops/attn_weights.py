@@ -1,7 +1,10 @@
 """Zipformer attention weights: kernel B1's wrapper, its plain version and
 its gradient.
 
-The forward dispatches on the queries' device: a CPU tensor takes
+The forward is the custom op `speech2text_torch::attn_weights`, so that
+`torch.export` records it as one node (its fake implementation gives the
+shape and dtype) and a reloaded program launches the kernel. The op
+dispatches on the queries' device: a CPU tensor takes
 `attn_weights_plain`, a CUDA tensor launches csrc/attn_weights.cu or
 raises (bf16: the tensor-core kernel, f32: the f32-FMA kernel). The
 plain version mirrors
@@ -99,10 +102,21 @@ def attn_weights_cuda(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,
     return out
 
 
-def _weights(q, k, qp, p, mask, w_dtype):
+@torch.library.custom_op("speech2text_torch::attn_weights", mutates_args=())
+def attn_weights_op(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,
+                    p: torch.Tensor, mask: Optional[torch.Tensor],
+                    w_dtype: torch.dtype) -> torch.Tensor:
+    """The weights on the CPU by the plain version, on the card by the
+    kernel."""
     if use_kernel(q.device):
         return attn_weights_cuda(q, k, qp, p, mask, w_dtype)
     return attn_weights_plain(q, k, qp, p, mask, w_dtype)
+
+
+@attn_weights_op.register_fake
+def _(q, k, qp, p, mask, w_dtype):
+    B, T, H, _ = q.shape
+    return q.new_empty((B, H, T, T), dtype=w_dtype)
 
 
 def attn_weights_backward(q: torch.Tensor, k: torch.Tensor,
@@ -140,7 +154,7 @@ class _ZipWeights(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, qp, p, mask, w_dtype):
-        w = _weights(q, k, qp, p, mask, w_dtype)
+        w = attn_weights_op(q, k, qp, p, mask, w_dtype)
         ctx.save_for_backward(q, k, qp, p, w)
         return w
 
@@ -158,4 +172,4 @@ def zip_weights(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, qp, p)):
         return _ZipWeights.apply(q, k, qp, p, mask, w_dtype)
-    return _weights(q, k, qp, p, mask, w_dtype)
+    return attn_weights_op(q, k, qp, p, mask, w_dtype)

@@ -1,10 +1,12 @@
 """Kaldi log-mel fbank: kernel B2's wrapper and its plain version.
 
-`fbank` dispatches on the PCM's device: a CPU tensor takes `fbank_plain`,
-a CUDA tensor launches csrc/fbank.cu (snip_edges framing only) or
-raises. The kernel takes the power spectrum by a 512-point FFT, which is
-the transform the DFT matrices hold, and the mel projection over each
-filter's run of non-zero bins (`mel_runs`). `fbank_plain` mirrors
+`fbank` calls the custom op `speech2text_torch::fbank` (one node to
+`torch.export`, shaped by its fake implementation), which dispatches on
+the PCM's device: a CPU tensor takes `fbank_plain`, a CUDA tensor
+launches csrc/fbank.cu (snip_edges framing only) or raises. The kernel
+takes the power spectrum by a 512-point FFT, which is the transform the
+DFT matrices hold, and the mel projection over each filter's run of
+non-zero bins (`mel_runs`). `fbank_plain` mirrors
 speech2text_tpu/data/frontend.py:_fbank_impl, including both framings of
 `frame_signal` and training-time dither (Gaussian noise of scale `dither`
 added to each frame, drawn from the caller's generator). The kernel has no
@@ -178,6 +180,31 @@ def fbank_cuda(pcm: torch.Tensor, window: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("speech2text_torch::fbank", mutates_args=())
+def fbank_op(pcm: torch.Tensor, window: torch.Tensor, dft_cos: torch.Tensor,
+             dft_sin: torch.Tensor, banks: torch.Tensor, max_frames: int,
+             frame_length: int, frame_shift: int, preemph: float,
+             remove_dc: bool, snip_edges: bool) -> torch.Tensor:
+    """The features without dither: on the CPU by the plain version, on
+    the card by the kernel."""
+    if not use_kernel(pcm.device):
+        return fbank_plain(pcm, window, dft_cos, dft_sin, banks, max_frames,
+                           frame_length, frame_shift, preemph, remove_dc,
+                           snip_edges)
+    if not snip_edges:
+        raise NotImplementedError(
+            "the fbank kernel frames with snip_edges=True only")
+    return fbank_cuda(pcm, window, dft_cos, dft_sin, banks, max_frames,
+                      frame_length, frame_shift, preemph, remove_dc)
+
+
+@fbank_op.register_fake
+def _(pcm, window, dft_cos, dft_sin, banks, max_frames, frame_length,
+      frame_shift, preemph, remove_dc, snip_edges):
+    return pcm.new_empty((pcm.shape[0], max_frames, banks.shape[0]),
+                         dtype=torch.float32)
+
+
 def fbank(pcm: torch.Tensor, window: torch.Tensor, dft_cos: torch.Tensor,
           dft_sin: torch.Tensor, banks: torch.Tensor, max_frames: int,
           frame_length: int = 400, frame_shift: int = 160,
@@ -185,15 +212,13 @@ def fbank(pcm: torch.Tensor, window: torch.Tensor, dft_cos: torch.Tensor,
           snip_edges: bool = True, dither: float = 0.0,
           generator: torch.Generator | None = None) -> torch.Tensor:
     """(B, N) pcm → (B, max_frames, n_mels) f32 log-mel features; dither
-    applies only with a generator (training)."""
-    if not use_kernel(pcm.device):
+    applies only with a generator (training), on the CPU."""
+    if dither > 0.0 and generator is not None:
+        if use_kernel(pcm.device):
+            raise NotImplementedError("the fbank kernel has no dither")
         return fbank_plain(pcm, window, dft_cos, dft_sin, banks, max_frames,
                            frame_length, frame_shift, preemph, remove_dc,
                            snip_edges, dither, generator)
-    if not snip_edges:
-        raise NotImplementedError(
-            "the fbank kernel frames with snip_edges=True only")
-    if dither > 0.0 and generator is not None:
-        raise NotImplementedError("the fbank kernel has no dither")
-    return fbank_cuda(pcm, window, dft_cos, dft_sin, banks, max_frames,
-                      frame_length, frame_shift, preemph, remove_dc)
+    return fbank_op(pcm, window, dft_cos, dft_sin, banks, max_frames,
+                    frame_length, frame_shift, float(preemph),
+                    bool(remove_dc), bool(snip_edges))

@@ -28,9 +28,13 @@ integer, so no step reads a value back from the card.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
+from torch import nn
+
+from ..convert import to_flax
 
 
 def _group_by_shape(params: List[torch.Tensor]) -> List[List[int]]:
@@ -229,3 +233,41 @@ class ScaledAdam:
                                 [u.to(self.params[i].dtype) for i, u in
                                  zip(idxs, upd.unbind(0))])
         self.step_count = step + 1
+
+
+def _flat_leaves(tree, prefix=""):
+    """(path, leaf) of a flax tree in jax.tree_util's order (sorted
+    keys), paths joined by '/'."""
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            yield from _flat_leaves(tree[k], path)
+        else:
+            yield path, tree[k]
+
+
+def dominant_parameter_report(model: nn.Module,
+                              grads: Optional[Dict[str, torch.Tensor]] = None,
+                              scalar_lr_scale: float = 0.1, top_k: int = 5
+                              ) -> List[Tuple[str, float]]:
+    """Which parameters dominate the rms-weighted grad norm
+    (speech2text_tpu/optim/scaled_adam.py:dominant_parameter_report):
+    each flax leaf's Σg² · mean(p²) (Σg² · scalar_lr_scale² for a leaf of
+    one element) as a fraction of their total, the `top_k` largest as
+    (flax path, fraction). `grads` are named as `model`'s parameters
+    (default: their `.grad`); names and layouts map to flax's as
+    convert.to_flax maps them."""
+    params = dict(model.named_parameters())
+    if grads is None:
+        grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+    flat_p = dict(_flat_leaves(to_flax(model, params)))
+    rows = []
+    for name, g in _flat_leaves(to_flax(model, grads)):
+        p = flat_p[name]
+        ss = float(np.sum(np.square(g.astype(np.float32))))
+        scale = scalar_lr_scale ** 2 if p.size <= 1 else \
+            float(np.mean(np.square(p)))
+        rows.append((name, ss * scale))
+    total = sum(s for _, s in rows) or 1.0
+    rows.sort(key=lambda r: -r[1])
+    return [(n, s / total) for n, s in rows[:top_k]]

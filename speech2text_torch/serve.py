@@ -8,7 +8,8 @@ by inference.py:inference_train_config, as the inference entry does.
 Zipformer2 encoder (chunk-masked when `streaming.is_encoder_streaming`
 asks for simulated streaming) → the decoder of the `decoding` section
 (greedy, or beam search with an optional RNN-LM from
-`metric.lm_fusion`; decoding.py:build_decoding).
+`metric.lm_fusion`; decoding.py:build_decoding; with `metric.int8`,
+the int8 predictor and joiner of tasks/rnnt.py:Int8Decoding).
 
 Runs on `cuda` unless the caller passes `device="cpu"`. Weights are a
 seeded random init (`seed`), a port checkpoint (`checkpoint=`: a
@@ -33,8 +34,8 @@ from .config import load_config
 from .data.frontend import Fbank, FrontendSetup, dequant_pcm
 from .inference import _resolve, inference_train_config
 from .models.cmvn import GlobalCmvn
-from .tasks.rnnt import (RnntModel, decoding_of, load_fusion_lm,
-                         streaming_chunks)
+from .tasks.rnnt import (Int8Decoding, RnntModel, decoding_of,
+                         load_fusion_lm, streaming_chunks)
 from .train.checkpoint import inference_weights
 
 
@@ -54,9 +55,6 @@ class RnntServer:
             if isinstance(inference_config, str) else inference_config
         train_cfg = serving_train_config(infer_cfg)
         metric = train_cfg.get("metric") or {}
-        if metric.get("int8"):
-            raise NotImplementedError("metric.int8 (int8 decoding) is not "
-                                      "ported")
         self.device = torch.device(device)
         self.batch_size = int(((infer_cfg.get("testset") or {}).get(
             "config") or {}).get("batch_size", 16))
@@ -89,7 +87,9 @@ class RnntServer:
         for m in (self.frontend, self.cmvn, self.model, self.lm):
             if m is not None:
                 m.to(self.device).eval()
-        self.decoder = decoding_of(metric, self.model, self.lm, lm_weight)
+        self.decoder = Int8Decoding(metric, self.model) \
+            if metric.get("int8") else \
+            decoding_of(metric, self.model, self.lm, lm_weight)
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):

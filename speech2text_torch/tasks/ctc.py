@@ -4,10 +4,10 @@ the CTC loss of its YAML on the head's logits, the training losses of a
 step (`train_losses`, taken by train/step.py:take_step), the evaluation
 forward (`val_loss`, log-probabilities and output lengths) and
 hypotheses as text from the decoder the `metric` section names
-(decoding.py:build_decoding: `ctc_greedy_search`, the default, or
-`ctc_prefix_beam_search` with `beam_size` and `cand_size`).
-`ctc_lexicon_beam_search`, which binds the C++ runtime, raises
-NotImplementedError."""
+(decoding.py:build_decoding: `ctc_greedy_search`, the default,
+`ctc_prefix_beam_search` with `beam_size` and `cand_size`, or
+`ctc_lexicon_beam_search`, the C++ runtime's lexicon beam with an
+optional ARPA LM, which returns texts)."""
 
 from __future__ import annotations
 
@@ -66,13 +66,11 @@ class CtcTask(AsrTaskBase):
         metric = dict(config.get("metric") or {})
         metric.setdefault("decode_method", "ctc_greedy_search")
         method = metric["decode_method"]
-        if method == "ctc_lexicon_beam_search":
-            raise NotImplementedError("ctc_lexicon_beam_search (the C++ "
-                                      "runtime's decoder) is not ported")
         if not method.startswith("ctc_"):
             raise NotImplementedError(f"decode method {method!r} on a CTC "
                                       f"task")
-        self.decode_session = build_decoding(metric)
+        self.decode_session = build_decoding(metric, tokenizer=self.tokenizer)
+        self.decodes_text = method == "ctc_lexicon_beam_search"
 
     def _loss(self, logits: torch.Tensor, out_lens: torch.Tensor,
               batch: Batch) -> torch.Tensor:
@@ -106,7 +104,10 @@ class CtcTask(AsrTaskBase):
         return out
 
     def eval_hyps(self, eval_out: Dict[str, torch.Tensor]) -> List[str]:
-        tokens, counts = self.decode_session.decode(eval_out["log_probs"],
-                                                    eval_out["out_lens"])
+        out = self.decode_session.decode(eval_out["log_probs"],
+                                         eval_out["out_lens"])
+        if self.decodes_text:
+            return out
+        tokens, counts = out
         return ids_to_texts(tokens.cpu().numpy(), counts.cpu().numpy(),
                             self.tokenizer)

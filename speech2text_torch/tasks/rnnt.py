@@ -19,8 +19,10 @@ streaming; a Conformer runs unmasked, as in JAX), and hypotheses as text
 from the transducer decoder the `metric` section names
 (decoding.py:build_decoding: greedy, or beam search with an optional
 RNN-LM from `metric.lm_fusion`, `load_fusion_lm`); the hybrid task
-decodes with the transducer too, as JAX's does. `metric.int8` and a CTC
-decode method raise NotImplementedError."""
+decodes with the transducer too, as JAX's does. With `metric.int8` the
+predictor and joiner decode int8-quantized (quant.py, `Int8Decoding`),
+as in JAX without the fusion LM; a CTC decode method raises
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..config import from_dict
+from ..convert import to_flax
 from ..decoding import build_decoding, ids_to_texts
 from ..losses import Loss
 from ..models.factories import (DecoderFactory, EncoderFactory,
@@ -39,6 +42,7 @@ from ..models.joiner import Joiner, JoinerConfig
 from ..models.layers import init_parameters
 from ..models.rnn_lm import RnnLm, RnnLmConfig
 from ..models.zipformer import Zipformer2
+from ..quant import Int8RnntBeamDecoding, Int8RnntGreedyDecoding
 from ..train.checkpoint import average_checkpoints
 from .base import AsrTaskBase, Batch
 
@@ -283,6 +287,53 @@ def decoding_of(metric: Dict[str, Any], model: RnntModel,
         lm_weight=lm_weight)
 
 
+class Int8Decoding:
+    """The int8 decoder of `metric.int8` (tasks/rnnt.py:118-125, 218-241
+    of the JAX package): greedy with `max_token_step`, or beam with
+    `beam_size` and `cutoff_top_k`, over the int8 predictor and joiner
+    (quant.py) of `model`'s weights, leaves under `int8_min_size`
+    (default 1024) elements kept f32; no fusion LM, as in JAX. The
+    weights are quantized again whenever a predictor or joiner parameter
+    has changed since the last decode (JAX quantizes once, at its first
+    evaluation)."""
+
+    def __init__(self, metric: Dict[str, Any], model: RnntModel):
+        self.metric = metric
+        self.model = model
+        self._key = None
+        self.session = None
+
+    def _weights_key(self, device: torch.device):
+        params = [*self.model.predictor.parameters(),
+                  *self.model.joiner.parameters()]
+        return device, tuple((p.data_ptr(), p._version) for p in params)
+
+    def decoding(self, device: torch.device):
+        """The int8 session for the current weights, on `device`."""
+        key = self._weights_key(device)
+        if key != self._key:
+            m = self.metric
+            tree = {"predictor": to_flax(self.model.predictor),
+                    "joiner": to_flax(self.model.joiner)}
+            common = dict(min_size=int(m.get("int8_min_size", 1024)),
+                          device=device)
+            args = (tree, self.model.predictor.config,
+                    self.model.joiner.config)
+            if m.get("decode_method") == "rnnt_beam_search":
+                self.session = Int8RnntBeamDecoding(
+                    *args, beam_size=int(m.get("beam_size", 4)),
+                    cutoff_top_k=int(m.get("cutoff_top_k", 4)), **common)
+            else:
+                self.session = Int8RnntGreedyDecoding(
+                    *args, max_token_step=int(m.get("max_token_step", 1)),
+                    **common)
+            self._key = key
+        return self.session
+
+    def decode(self, enc_out: torch.Tensor, enc_lens: torch.Tensor):
+        return self.decoding(enc_out.device).decode(enc_out, enc_lens)
+
+
 def streaming_chunks(metric: Dict[str, Any]) -> Tuple[int, int]:
     """(chunk_size, left_context_chunks) of the encoder's forward: the
     simulated-streaming chunks of `metric.encoder_streaming`
@@ -310,9 +361,6 @@ class TransducerTask(AsrTaskBase):
                              f"labels, the joiner only {out_dim} outputs")
         self.loss = loss
         metric = config.get("metric") or {}
-        if metric.get("int8"):
-            raise NotImplementedError("metric.int8 (int8 decoding) is not "
-                                      "ported")
         method = metric.get("decode_method", "rnnt_greedy_search")
         if method.startswith("ctc_"):
             raise NotImplementedError(f"decode method {method!r} on a "
@@ -320,8 +368,9 @@ class TransducerTask(AsrTaskBase):
         self.streaming = streaming_chunks(metric)
         self.lm, lm_weight = load_fusion_lm(metric, len(self.tokenizer),
                                             out_dim)
-        self.decode_session = decoding_of(metric, self.model, self.lm,
-                                          lm_weight)
+        self.decode_session = Int8Decoding(metric, self.model) \
+            if metric.get("int8") else \
+            decoding_of(metric, self.model, self.lm, lm_weight)
 
     @torch.no_grad()
     def eval_forward(self, batch: Batch, losses: bool = True

@@ -15,7 +15,7 @@ and no such request it raises.
         [--avg_best_k 2] [--checkpoints_dir DIR] [--device cpu]
 
 The JAX tool's `--export_dir` (StableHLO export of the chunk graph) is not
-ported.
+ported: asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoints_dir", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--export_dir", default=None,
+                    help="the streaming-session export (not ported)")
     return ap.parse_args(argv)
 
 
@@ -63,6 +65,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Stream each wav; returns {"session", "results": [{"wav",
     "seconds", "text", "latency_ms", "summary"}, ...]}."""
     args = parse_args(argv)
+    if args.export_dir:
+        raise NotImplementedError("stream_demo --export_dir (the "
+                                  "streaming-session export) is not ported")
     device = resolve_device(args.device, {})
     cfg = inference_train_config(
         {"task": {"train_config": _resolve(args.train_config)}})

@@ -393,5 +393,7 @@ def test_build_decoding(tiny):
     # the CIF task's per-position argmax (tests/test_torch_cif.py)
     assert isinstance(build_decoding({"decode_method": "cif_greedy_search"},
                                      *args), CifGreedyDecoding)
+    # ctc_lexicon_beam_search is ported (tests/test_torch_lexicon.py); an
+    # unknown method raises and names the ported ones
     with pytest.raises(NotImplementedError, match="ctc_lexicon_beam_search"):
-        build_decoding({"decode_method": "ctc_lexicon_beam_search"}, *args)
+        build_decoding({"decode_method": "ctc_no_such_search"}, *args)

@@ -3,8 +3,11 @@ against the JAX package's, on a synthetic corpus written to tmp_path, on
 the CPU:
 
 - configs/inference/ctc_greedy_search.yaml, ctc_beam_search.yaml (beam
-  8) and pruned_rnnt_ctc_greedy_search.yaml through both inference
-  entries, on a tiny CTC and a tiny pruned RNN-T + CTC Conformer
+  8), ctc_beam_search.yaml with `ctc_lexicon_beam_search` (the C++
+  runtime's lexicon beam over the corpus's words and a synthetic ARPA LM;
+  JAX's binding loads the library the port builds) and
+  pruned_rnnt_ctc_greedy_search.yaml through both inference entries, on a
+  tiny CTC and a tiny pruned RNN-T + CTC Conformer
   (tests/test_torch_ctc_task.py's configs) with the same averaged
   checkpoints in each package's format: `test_report.txt` equal byte for
   byte;
@@ -47,9 +50,31 @@ INFER = {
     "ctc_greedy_search": ("configs/inference/ctc_greedy_search.yaml",
                           "ctc"),
     "ctc_beam_search": ("configs/inference/ctc_beam_search.yaml", "ctc"),
+    "ctc_lexicon_beam_search": ("configs/inference/ctc_beam_search.yaml",
+                                "ctc"),
     "pruned_rnnt_ctc_greedy_search": (
         "configs/inference/pruned_rnnt_ctc_greedy_search.yaml", "pruned"),
 }
+
+
+@pytest.fixture(scope="module")
+def lexicon_overrides(corpus, tmp_path_factory):
+    """The decoding overrides of the lexicon case: the corpus's words as
+    the word list, and a unigram ARPA LM over them."""
+    from speech2text_torch.data.manifest import iter_text, load_manifest
+    words = sorted({w for text in iter_text(load_manifest(
+        corpus["train_data"])) for w in text.split()})
+    root = tmp_path_factory.mktemp("lexicon")
+    (root / "words.txt").write_text("".join(f"{w}\n" for w in words))
+    grams = [f"{-1.0 - 0.01 * i:.2f} {w} -0.1"
+             for i, w in enumerate(["<s>", "</s>"] + words)]
+    (root / "lm.arpa").write_text(
+        f"\\data\\\nngram 1={len(grams)}\n\n\\1-grams:\n"
+        + "\n".join(grams) + "\n\n\\end\\\n")
+    return ["decoding.type=ctc_lexicon_beam_search",
+            f"decoding.config.word_list={root / 'words.txt'}",
+            f"decoding.config.arpa_lm={root / 'lm.arpa'}",
+            "decoding.config.lm_weight=0.5"]
 
 
 @pytest.fixture(scope="module")
@@ -80,20 +105,26 @@ def checkpoints(corpus, tmp_path_factory):
 
 @pytest.mark.parametrize("name", sorted(INFER))
 def test_inference_report_equals_jax(corpus, checkpoints, name, tmp_path,
-                                     monkeypatch):
+                                     monkeypatch, request):
     import inference as jinf
+    from speech2text_tpu import runtime_binding as jrb
     from speech2text_tpu.parallel import mesh as jmesh
+    from speech2text_torch.runtime_binding import build_library
     yaml_path, kind = INFER[name]
     one_device = jmesh.make_mesh
     monkeypatch.setattr(jmesh, "make_mesh", lambda config=None, devices=None:
                         one_device(config, devices=jax.devices()[:1]))
+    extra = []
+    if name == "ctc_lexicon_beam_search":
+        extra = request.getfixturevalue("lexicon_overrides")
+        monkeypatch.setattr(jrb, "_LIB_PATHS", (str(build_library()),))
     out = {}
     for pkg in ("jax", "torch"):
         workdir = tmp_path / pkg
         overrides = [f"task.train_config={checkpoints[kind]['train']}",
                      f"task.export_path={workdir}",
                      f"task.checkpoints_dir={checkpoints[kind][pkg]}",
-                     f"testset.test_data={corpus['eval_data']}"]
+                     f"testset.test_data={corpus['eval_data']}"] + extra
         if pkg == "jax":
             jinf.FLAGS.unparse_flags()
             jinf.FLAGS(["inference", f"--inference_config={yaml_path}"]

@@ -164,10 +164,20 @@ def test_prefix_beam_with_all_candidates_matches_the_dict_oracle():
         assert got_t[i, :got_c[i]].tolist() == want, i
 
 
-def test_build_decoding_ctc_methods():
+def test_build_decoding_ctc_methods(tmp_path):
     assert isinstance(tdec.build_decoding(
         {"decode_method": "ctc_greedy_search"}), tdec.CtcGreedyDecoding)
     dec = tdec.build_decoding({"decode_method": "ctc_prefix_beam_search"})
     assert (dec._beam, dec._cand) == (8, 8)
+    # the C++ runtime's lexicon beam over a word list spelled by the
+    # tokenizer (tests/test_torch_lexicon.py holds it to JAX's)
+    from speech2text_torch.data.tokenizer import TokenizerSetup
+    from speech2text_torch.runtime_binding import CtcLexiconBeamDecoding
+    words = tmp_path / "words.txt"
+    words.write_text("the\ncat\n")
+    tok = TokenizerSetup({"type": "char", "config": {}})
+    dec = tdec.build_decoding({"decode_method": "ctc_lexicon_beam_search",
+                               "word_list": str(words)}, tokenizer=tok)
+    assert isinstance(dec, CtcLexiconBeamDecoding)
     with pytest.raises(NotImplementedError):
-        tdec.build_decoding({"decode_method": "ctc_lexicon_beam_search"})
+        tdec.build_decoding({"decode_method": "ctc_no_such_search"})

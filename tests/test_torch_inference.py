@@ -34,7 +34,7 @@ from speech2text_torch.data.spm import train_unigram
 from speech2text_torch.data.tokenizer import TokenizerSetup
 from speech2text_torch.models.rnn_lm import RnnLm, RnnLmConfig
 from speech2text_torch.serve import RnntServer
-from speech2text_torch.tasks.rnnt import PrunedRnntTask, RnntModel
+from speech2text_torch.tasks.rnnt import Int8Decoding, PrunedRnntTask, RnntModel
 from speech2text_torch.tools.synth_corpus import write_corpus
 from speech2text_torch.train import checkpoint as tckpt
 
@@ -305,19 +305,18 @@ def test_unported_options_raise(setup, monkeypatch):
         # the full-lattice tasks refuse a pruned joiner
         with pytest.raises(ValueError, match="prune_range"):
             tinf.main(base + ["--override", ov])
-    for ov in ("task.module_export=true",
-               "task.onnx_export=true", "decoding.config.int8=true",
+    for ov in ("task.onnx_export=true",
                "decoding.type=ctc_greedy_search",
                "decoding.type=ctc_prefix_beam_search"):
         with pytest.raises(NotImplementedError):
             tinf.main(base + ["--override", ov])
+    # int8 decoding and module_export are ported (tests/test_torch_quant.py,
+    # tests/test_torch_export.py)
     cfg = dict(setup["train_config"], metric={"int8": True})
-    with pytest.raises(NotImplementedError, match="int8"):
-        PrunedRnntTask(cfg)
+    assert isinstance(PrunedRnntTask(cfg).decode_session, Int8Decoding)
     infer = _streaming_infer(setup["train_config"])
     infer["decoding"]["config"]["int8"] = True
-    with pytest.raises(NotImplementedError, match="int8"):
-        RnntServer(infer, device="cpu")
+    assert isinstance(RnntServer(infer, device="cpu").decoder, Int8Decoding)
     small = dict(LM_DIMS, num_symbols=5)
     cfg = dict(setup["train_config"], metric={
         "decode_method": "rnnt_beam_search",

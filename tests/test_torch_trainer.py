@@ -37,7 +37,7 @@ from speech2text_torch.convert import to_flax
 from speech2text_torch.data.spm import train_unigram
 from speech2text_torch.data.manifest import iter_text, load_manifest
 from speech2text_torch.data.tokenizer import TokenizerSetup
-from speech2text_torch.tasks.rnnt import PrunedRnntTask
+from speech2text_torch.tasks.rnnt import Int8Decoding, PrunedRnntTask
 from speech2text_torch.tools.synth_corpus import write_corpus
 from speech2text_torch.train import checkpoint as tckpt
 from speech2text_torch.train import tb_writer as ttb
@@ -314,12 +314,15 @@ def test_unported_options_raise(corpus, tmp_path):
     cfg = _config(corpus, workdir, accumulate_grad_batches=2)
     assert Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu").accum == 2
     for key, value in (("decode_method", "ctc_greedy_search"),
-                       ("decode_method", "ctc_prefix_beam_search"),
-                       ("int8", True)):
+                       ("decode_method", "ctc_prefix_beam_search")):
         cfg = _config(corpus, workdir)
         cfg["metric"][key] = value
         with pytest.raises(NotImplementedError):
             PrunedRnntTask(cfg)
+    # int8 decoding is ported (tests/test_torch_quant.py)
+    cfg = _config(corpus, workdir)
+    cfg["metric"]["int8"] = True
+    assert isinstance(PrunedRnntTask(cfg).decode_session, Int8Decoding)
 
 
 def _cli_config(corpus, tmp_path):
@@ -370,9 +373,12 @@ def test_build_task_finetune_and_unported(corpus, tmp_path):
     got = trainer.task.model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
     trainer.close()
-    with pytest.raises(NotImplementedError):
-        build_task.prepare([f"--training_config={path}", "--device", "cpu",
-                            "--override=callbacks.frontend_save=true"])
+    # the frontend export callback is ported (tests/test_torch_export.py)
+    trainer, _ = build_task.prepare([
+        f"--training_config={path}", "--device", "cpu",
+        "--override=callbacks.frontend_save=true"])
+    trainer.close()
+    assert (tmp_path / "tasks" / "cli" / "frontend.pt2").stat().st_size > 0
     # global CMVN is ported: an existing statistics file is loaded as it is
     # (their computation: tests/test_torch_loop_options.py)
     stats = tmp_path / "stats.json"
