@@ -167,6 +167,21 @@ Phases (any failed check raises and the script exits non-zero):
      CLI = inference's chkpt_aver average, bitwise. Every run on the card
      has its launches counted, every B1 call held as check_weights holds
      it and every B2 call as check_mel;
+ 18. the export surfaces (phase_export): (a) stream_demo --export_dir on
+     phase 10's checkpoints (bf16, chunk 32, 4 left chunks, B=1); the
+     reloaded stream_prime.pt2 / stream_step.pt2 over a prime and 30
+     steps of phase 12's eval PCM held to the eager session chunk by
+     chunk (tokens equal, state tensors within ENC_TOL), 0 B1 and 1 B2
+     launch per chunk, every B2 call held; the same with phase 12's
+     seeded weights loaded, tokens compared > 0; the reloaded step's p50
+     against the eager step's, in turns; (b) inference.main with
+     task.onnx_export (1 x 2000 frames): the nine artifacts and
+     encoder_stream_spec.json, every graph in the port's numpy runner
+     on the host against the card's eager f32 model (TF32 off) within
+     ENC_TOL, each int8 graph within 0.05 x its f32 graph's output
+     magnitude (the streaming graph's first call from the zero state
+     recorded and held with the frontend projection kept f32), no
+     custom-op node; export and runner seconds;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -195,7 +210,10 @@ their worst error), and under "ctc_encoders" phase 16's (emformer:
 launches, per step, per test batch, calls checked, worst error; wav2vec2:
 0; the CMVN run's and the accumulation run's launches), and under
 "deploy" phase 17's (launches over the phase, calls held, worst error,
-launches inside the reloaded exported programs).
+launches inside the reloaded exported programs), and under "export"
+phase 18's (launches over the phase, calls held, worst error, launches
+inside the reloaded streaming programs and per chunk, the ONNX graphs'
+custom-op nodes: 0).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -4838,6 +4856,433 @@ def phase_deploy(card, report, tmp, trained):
         kern]) for kern, t in totals.items()}
 
 
+# ------------------------------------------------------------ phase 18
+ONNX_FRAMES = 2000               # onnx_encoder_config.max_frames default
+ONNX_STREAM_CHUNKS = 3           # streaming-encoder graph calls checked
+ONNX_INT8_BOUND = 0.05           # tests/test_onnx.py's int8 bound
+RUNNER_OPS = frozenset((
+    "Add", "Sub", "Mul", "Div", "Max", "Min", "And", "Or", "Xor", "Not",
+    "Neg", "Abs", "Exp", "Log", "Sqrt", "Reciprocal", "Tanh", "Sigmoid",
+    "Sign", "Sin", "Cos", "Floor", "Ceil", "Erf", "Pow", "Mod", "Greater",
+    "GreaterOrEqual", "Less", "LessOrEqual", "Equal", "Where", "Clip",
+    "Cast", "Identity", "Reshape", "Transpose", "Expand", "Concat", "Slice",
+    "Pad", "Split", "ReduceSum", "ReduceMax", "ReduceMin", "ReduceProd",
+    "ReduceMean", "ArgMax", "ArgMin", "MatMul", "Einsum", "Gather", "Conv",
+    "Softmax", "DynamicQuantizeLinear", "MatMulInteger"))
+ONNX_FILES = ("encoder", "predictor", "joiner", "encoder_stream")
+
+
+def tree_close(label, got, want):
+    """Two state trees (dicts, lists, tensors, None): integer tensors
+    equal, float ones within ENC_TOL; returns the worst float error."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), (label, sorted(got))
+        return max([tree_close(f"{label}.{k}", got[k], want[k])
+                    for k in want], default=0.0)
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), label
+        return max([tree_close(f"{label}[{i}]", g, w)
+                    for i, (g, w) in enumerate(zip(got, want))],
+                   default=0.0)
+    if want is None:
+        assert got is None, label
+        return 0.0
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        (label, got.dtype, want.dtype, got.shape, want.shape)
+    if not want.is_floating_point():
+        assert torch.equal(got, want), f"{label}: integers differ"
+        return 0.0
+    return check_close(label, got.float(), want.float(), **ENC_TOL)
+
+
+def program_chunks(sess, prime, step, pcm, timed=False):
+    """The reloaded programs over (B, prime + k·step) PCM from the
+    session's program state → (each chunk's state, per-chunk wall ms when
+    `timed`: each chunk ends with a synchronise)."""
+    pcm = torch.from_numpy(pcm).cuda()
+    state = sess.program_state(batch_size=pcm.shape[0])
+    states, lat = [], []
+    offs = [0] + list(range(sess.prime_samples, pcm.shape[1],
+                            sess.step_samples))
+    with torch.no_grad():
+        for i, off in enumerate(offs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                state = prime(pcm[:, :sess.prime_samples], state)
+            else:
+                state = step(pcm[:, off:off + sess.step_samples], state)
+            if timed:
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            states.append(state)
+    return states, lat
+
+
+def eager_chunks(sess, pcm, timed=False):
+    """The eager session over the same chunks → (each chunk's state in the
+    programs' layout, per-chunk wall ms when `timed`)."""
+    states, lat = [], []
+    state = sess.init_state(pcm.shape[0])
+    offs = [0] + list(range(sess.prime_samples, pcm.shape[1],
+                            sess.step_samples))
+    for i, off in enumerate(offs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            state = sess.prime(pcm[:, :sess.prime_samples], state)
+        else:
+            state = sess.step(pcm[:, off:off + sess.step_samples], state)
+        if timed:
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        states.append(sess.program_state(state))
+    return states, lat
+
+
+def programs_vs_eager(label, sess, programs, pcm):
+    """The reloaded programs held (held_calls: 0 B1 and 1 B2 launch per
+    chunk, every B2 call against the plain version) and compared with the
+    eager session chunk by chunk: tokens and counts equal, every state
+    tensor within ENC_TOL. Returns (tokens compared, chunks, worst state
+    error, the held record)."""
+    (states, _), rec = held_calls(label, lambda: program_chunks(
+        sess, programs["prime"], programs["step"], pcm))
+    n = len(states)
+    assert rec["launches"] == {"attn_weights": 0, "fbank": n}, \
+        f"{label}: launches {rec['launches']} for {n} chunks"
+    want, _ = eager_chunks(sess, pcm)
+    worst = max(tree_close(f"{label} chunk {i}", g, w)
+                for i, (g, w) in enumerate(zip(states, want)))
+    return int(states[-1]["counts"].sum()), n, worst, rec
+
+
+def int8_keeping(data, keep_rows):
+    """quantize_dynamic(data, ("MatMul",)) with the MatMuls whose 2-D
+    weight has `keep_rows` rows left f32 (their weight reaches them
+    through a Reshape, which the rewrite does not follow)."""
+    from speech2text_torch.onnx import proto, quantize_dynamic
+    g = proto.parse_model(data).graph
+    inits, nodes, kept = dict(g.initializers), [], 0
+    for n in g.nodes:
+        w = inits.get(n.inputs[1]) if n.op_type == "MatMul" else None
+        if w is not None and w.ndim == 2 and w.shape[0] == keep_rows:
+            name = n.inputs[1]
+            inits[name + "_3d"] = w[None]
+            inits[name + "_shape"] = np.asarray(w.shape, np.int64)
+            nodes.append(proto.node_proto(
+                "Reshape", [name + "_3d", name + "_shape"], [name + "_2d"]))
+            nodes.append(proto.node_proto("MatMul", [n.inputs[0],
+                                                     name + "_2d"],
+                                          n.outputs))
+            kept += 1
+        else:
+            nodes.append(proto.node_proto(n.op_type, n.inputs, n.outputs,
+                                          name=n.name,
+                                          attrs=n.attrs or None))
+    assert kept, f"no MatMul weight with {keep_rows} rows"
+
+    def info(entries):
+        return [proto.value_info_proto(*e) for e in entries]
+    graph = proto.graph_proto(g.name, nodes, [
+        proto.tensor_proto(k, v) for k, v in inits.items()],
+        info(g.inputs), info(g.outputs))
+    return quantize_dynamic(proto.model_proto(graph), ("MatMul",)), kept
+
+
+def onnx_runner_checks(task, edir, card):
+    """Each graph of `edir` in the port's numpy runner on the host against
+    the card's eager f32 model (export.f32_model, TF32 off) on the same
+    inputs, within ENC_TOL (the streaming encoder over
+    ONNX_STREAM_CHUNKS chunks, its states fed back); each *_int8 graph
+    within ONNX_INT8_BOUND of its f32 graph's output magnitude, the
+    streaming graph on each chunk from the f32 graph's carried state but
+    its first call from the zero state, whose error is recorded; no graph
+    holds a node outside the runners' op set (no custom-op node)."""
+    from speech2text_torch.export import f32_model
+    from speech2text_torch.onnx import OnnxRunner, proto
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = f32_model(task).cuda()
+    graphs = {}
+    for name in ONNX_FILES:
+        for key in (name, f"{name}_int8"):
+            with open(os.path.join(edir, f"{key}.onnx"), "rb") as f:
+                graphs[key] = f.read()
+            ops = {n.op_type for n in proto.parse_model(
+                graphs[key]).graph.nodes}
+            assert ops <= RUNNER_OPS, f"{key}: nodes {ops - RUNNER_OPS}"
+    # real features: the first test batch's first row, padded or cut to
+    # ONNX_FRAMES frames
+    batch = device_batches(task, "cuda")[0]
+    with torch.no_grad():
+        feats, lens = task.featurize(batch)
+    T = min(int(lens[0]), ONNX_FRAMES)
+    x = torch.zeros((1, ONNX_FRAMES, feats.shape[-1]), device="cuda")
+    x[0, :T] = feats[0, :T].float()
+    x_len = torch.tensor([T], dtype=torch.int32, device="cuda")
+    d = model.joiner.config.input_dim
+    runner_s, err, int8_err = {}, {}, {}
+
+    def run(key, *args):
+        t0 = time.perf_counter()
+        got = OnnxRunner(graphs[key])(*[a.cpu().numpy() for a in args])
+        runner_s[key] = runner_s.get(key, 0.0) + time.perf_counter() - t0
+        return [torch.from_numpy(np.asarray(g)) for g in got]
+
+    with torch.no_grad():
+        cases = {}
+        enc, enc_lens = model.encoder(x, x_len)
+        cases["encoder"] = ((x, x_len), (enc, enc_lens))
+        tok = torch.tensor([7], dtype=torch.int32, device="cuda")
+        state = model.predictor.init_state(1, "cuda").to(torch.int32)
+        pred, new_state = model.predictor.streaming_step(tok, state)
+        cases["predictor"] = ((tok, state), (pred, new_state))
+        frame, p_frame = enc[:, T // 8], pred[:, 0]
+        cases["joiner"] = ((frame, p_frame),
+                           (model.joiner.streaming_step(frame, p_frame),))
+        for name, (args, want) in cases.items():
+            got = run(name, *args)
+            assert len(got) == len(want), name
+            err[name] = max(tree_close(f"onnx {name}", g, w.cpu())
+                            for g, w in zip(got, want))
+        with open(os.path.join(edir, "encoder_stream_spec.json")) as f:
+            spec = json.load(f)
+        chunk, left = spec["chunk_size"], spec["left_context_chunks"]
+        st = model.encoder.init_streaming_state(1, chunk, left, "cuda")
+        leaves = [torch.zeros(s["shape"], dtype=getattr(torch, s["dtype"]))
+                  for s in spec["state"]]
+        step = spec["feats_per_step"]
+        stream_err = 0.0
+        chunk_args = []
+        for i in range(ONNX_STREAM_CHUNKS):
+            fc = x[:, i * step:(i + 1) * step]
+            want, st = model.encoder.streaming_step(fc, st)
+            chunk_args.append((fc, *leaves))
+            got = run("encoder_stream", fc, *leaves)
+            leaves = got[1:]
+            stream_err = max(stream_err, tree_close(
+                f"onnx encoder_stream chunk {i}", got[0], want.cpu()))
+        err["encoder_stream"] = stream_err
+        bounds = {}
+        for name, args in [(k, a) for k, (a, _) in cases.items()] + [
+                (f"encoder_stream chunk {i}", a)
+                for i, a in enumerate(chunk_args)]:
+            graph = name.split()[0]
+            fp = run(graph, *args)[0]
+            q = run(f"{graph}_int8", *args)[0]
+            bounds[name] = ONNX_INT8_BOUND * max(float(fp.abs().max()), 1e-3)
+            int8_err[name] = float((q - fp).abs().max())
+        # the streaming graph's first call, from the zero state, is held
+        # apart: its error is the frontend projection's (PERF.md),
+        # so with that one MatMul (F2·C → D) left f32 it is in the bound
+        first = "encoder_stream chunk 0"
+        for name, e in int8_err.items():
+            assert name == first or e < bounds[name], \
+                f"onnx {name} int8: {e:.4g} >= {bounds[name]:.4g}"
+        embed = model.encoder.embed
+        rows = embed.freq_dim(embed.feature_dim) * embed.mid_channels
+        graphs["encoder_stream_int8_keep"], kept = int8_keeping(
+            graphs["encoder_stream"], rows)
+        fp = run("encoder_stream", *chunk_args[0])[0]
+        q = run("encoder_stream_int8_keep", *chunk_args[0])[0]
+        keep = f"{first}, {kept} MatMul of {rows} rows f32"
+        int8_err[keep] = float((q - fp).abs().max())
+        bounds[keep] = bounds[first]
+        assert int8_err[keep] < bounds[keep], \
+            f"onnx {keep}: {int8_err[keep]:.4g} >= {bounds[keep]:.4g}"
+    log("export onnx runner (numpy, host) against the card's f32 eager "
+        f"model (TF32 off), within {ENC_TOL}, worst: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in err.items()) + f" (the streaming "
+        f"encoder over {ONNX_STREAM_CHUNKS} chunks of {step} frames, its "
+        f"states fed back); int8 graphs against the f32 graphs, max abs "
+        f"err / bound ({ONNX_INT8_BOUND} x magnitude): " + ", ".join(
+            f"{k} {v:.3g} / {bounds[k]:.3g}" for k, v in int8_err.items())
+        + f" ({first} held apart); runner s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in runner_s.items()), card)
+    del model
+    return {"max_abs_err": err, "int8_max_abs_err": int8_err,
+            "int8_bound": bounds, "runner_s": runner_s,
+            "bytes": {k: len(v) for k, v in graphs.items()}}
+
+
+def phase_export(card, report, tmp, trained):
+    """Phase 18: the streaming-session export and the ONNX export on the
+    card. (a) stream_demo --export_dir on phase 10's checkpoints (the
+    flagship YAML, bf16, chunk 32, STREAM_LEFT left chunks, B=1): the
+    reloaded stream_prime.pt2 / stream_step.pt2 over phase 12's eval PCM
+    (a prime and STREAM_TIMED_CHUNKS steps) held to the eager session on
+    the card chunk by chunk (tokens equal, state tensors within ENC_TOL),
+    0 B1 and 1 B2 launch per chunk with every B2 call held to the plain
+    version; the same with phase 12's seeded weights loaded into the
+    programs and the session, where the tokens compared must be > 0; the
+    reloaded step timed against the eager step (steady p50 at B=1, in
+    turns: eager, programs, programs, eager). (b) inference.main on phase 10's checkpoints with the
+    flagship greedy YAML and task.onnx_export: JAX's nine artifacts and
+    encoder_stream_spec.json written, the report as before; every graph
+    run in the port's numpy runner on the host against the card's eager
+    f32 model (onnx_runner_checks); export and runner seconds recorded.
+    Every run on the card is held (held_calls)."""
+    from speech2text_torch import inference
+    from speech2text_torch.data.manifest import load_manifest
+    from speech2text_torch.export import load_exported
+    from speech2text_torch.tools import stream_demo
+    t_phase = time.perf_counter()
+    out, held = {}, {}
+    xdir = os.path.join(tmp, "export18")
+    train_cfg = os.path.join(trained["workdir"], os.path.basename(TRAIN_CFG))
+    corpus = trained["corpus"]
+
+    # (a) the demo exports, then streams, on phase 10's checkpoints
+    wav = max(load_manifest(corpus["eval_data"]),
+              key=lambda e: e["duration"])["audio_filepath"]
+    t0 = time.perf_counter()
+    demo, held["demo_export"] = held_calls("export stream demo", lambda: (
+        stream_demo.main([
+            "--train_config", train_cfg, "--wav", wav,
+            "--checkpoints_dir", os.path.join(trained["workdir"],
+                                              "checkpoints"),
+            "--chunk_size", "32", "--left_chunks", str(STREAM_LEFT),
+            "--export_dir", f"{xdir}/stream"])))
+    demo_s = time.perf_counter() - t0
+    (res,) = demo["results"]
+    n_demo = len(res["latency_ms"])
+    # one B2 launch more than the demo's chunks: the export runs the prime
+    # once eagerly for the step program's example state
+    assert held["demo_export"]["launches"] == {
+        "attn_weights": 0, "fbank": n_demo + 1}, held["demo_export"]
+    sess = demo["session"]
+    assert sess.task.model.encoder.config.dtype == "bfloat16"
+    programs = {k: load_exported(demo["exported"][k])
+                for k in ("prime", "step")}
+    pcm = stream_audio(corpus, 1, sess.prime_samples
+                       + STREAM_TIMED_CHUNKS * sess.step_samples)
+    n_tok, n_chunks, worst, held["programs_trained"] = programs_vs_eager(
+        "export programs (trained, bf16)", sess, programs, pcm)
+    turns = []
+    for which in ("eager", "programs", "programs", "eager"):
+        if which == "eager":
+            _, lat = eager_chunks(sess, pcm, timed=True)
+        else:
+            with torch.no_grad():
+                _, lat = program_chunks(sess, programs["prime"],
+                                        programs["step"], pcm, timed=True)
+        turns.append((which, float(np.percentile(lat[1:], 50))))
+    log(f"export stream demo --export_dir (phase 10's checkpoints, bf16, "
+        f"chunk 32, {STREAM_LEFT} left chunks, B=1) on "
+        f"{os.path.basename(wav)}: {demo_s:.1f} s with {n_demo} chunks "
+        f"streamed, stream_prime.pt2 "
+        f"{os.path.getsize(demo['exported']['prime']) / 2**20:.1f} MiB, "
+        f"stream_step.pt2 "
+        f"{os.path.getsize(demo['exported']['step']) / 2**20:.1f} MiB; "
+        f"reloaded over {n_chunks} chunks: launches "
+        f"{held['programs_trained']['launches']}, every B2 call held "
+        f"(worst log {held['programs_trained']['max_abs_err']['fbank']:.3g})"
+        f", {n_tok} tokens equal to the eager session's, states within "
+        f"{ENC_TOL} (worst {worst:.3g}); steady step p50 ms in turns: "
+        + ", ".join(f"{w} {v:.3f}" for w, v in turns), card)
+    out["stream_trained"] = {
+        "demo_s": demo_s, "demo_chunks": n_demo, "chunks": n_chunks,
+        "tokens": n_tok, "state_max_abs_err": worst,
+        "step_p50_ms_turns": turns,
+        "bytes": {k: os.path.getsize(v)
+                  for k, v in demo["exported"].items()}}
+
+    # the token check on phase 12's seeded weights (20 training steps
+    # emit almost nothing), loaded into the demo's programs and session
+    task16, _, _ = stream_tasks(trained)
+    seeded = task16.model.state_dict()
+    sess.task.model.load_state_dict(seeded)
+    for prog in programs.values():
+        state = {f"task.model.{k}": v for k, v in seeded.items()}
+        missing = sorted(set(prog.state_dict()) - set(state))
+        assert not missing, f"program weights not reloaded: {missing[:3]}"
+        prog.load_state_dict(state, strict=False)
+    del task16, seeded, state
+    n_tok, n_chunks, worst, held["programs_seeded"] = programs_vs_eager(
+        "export programs (seeded, bf16)", sess, programs, pcm)
+    assert n_tok > 0, "the programs emitted no token on seeded weights"
+    log(f"export programs with phase 12's seeded weights loaded (bf16, "
+        f"chunk 32, B=1): over {n_chunks} chunks launches "
+        f"{held['programs_seeded']['launches']}, {n_tok} tokens equal to "
+        f"the eager session's, states within {ENC_TOL} (worst "
+        f"{worst:.3g})", card)
+    out["stream_seeded"] = {"chunks": n_chunks, "tokens": n_tok,
+                            "state_max_abs_err": worst}
+    del demo, sess, programs
+    torch.cuda.empty_cache()
+
+    # (b) the ONNX export through inference's main
+    timer = {}
+    export_onnx = inference.export_onnx_modules
+
+    def timed_export(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = export_onnx(*args, **kwargs)
+        timer["export_s"] = time.perf_counter() - t0
+        return result
+
+    inference.export_onnx_modules = timed_export
+    try:
+        run, held["onnx_inference"] = held_calls(
+            "export onnx inference", lambda: run_inference(
+                "onnx_export", [
+                    "--inference_config", CFG,
+                    "--override", f"task.train_config={train_cfg}",
+                    "--override", f"task.export_path={xdir}/onnx",
+                    "--override", f"testset.test_data={corpus['eval_data']}",
+                    "--override", "task.onnx_export=true",
+                    "--override", "onnx_export_config.onnx_encoder_config."
+                    f"max_frames={ONNX_FRAMES}"], card, RUN_LAYERS))
+    finally:
+        inference.export_onnx_modules = export_onnx
+    edir = f"{xdir}/onnx"
+    written = sorted(os.listdir(edir))
+    for name in ("units.txt", "encoder_stream_spec.json") + tuple(
+            f"{g}{s}.onnx" for g in ONNX_FILES for s in ("", "_int8")):
+        assert name in written and \
+            os.path.getsize(os.path.join(edir, name)) > 0, name
+    checks = onnx_runner_checks(run["task"], edir, card)
+    log(f"export onnx: inference.main with task.onnx_export "
+        f"{run['wall_s']:.1f} s ({timer['export_s']:.1f} s of it the export "
+        f"of the 8 graphs at max_frames {ONNX_FRAMES}), corpus WER "
+        f"{run['wer']:.4f}; sizes MiB: " + ", ".join(
+            f"{k} {v / 2**20:.1f}" for k, v in checks["bytes"].items()),
+        card)
+    out["onnx"] = dict(checks, export_s=timer["export_s"],
+                       inference_s=run["wall_s"], max_frames=ONNX_FRAMES,
+                       custom_op_nodes=0)
+    del run
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_phase
+    totals = {kern: {
+        "launches": sum(h["launches"][kern] for h in held.values()),
+        "calls_checked": sum(h["calls_checked"][kern]
+                             for h in held.values()),
+        "max_abs_err": max(h["max_abs_err"][kern] for h in held.values())}
+        for kern in ("attn_weights", "fbank")}
+    for kern, t in totals.items():
+        assert t["calls_checked"] == t["launches"], (kern, t)
+    progs = ("programs_trained", "programs_seeded")
+    chunks = out["stream_trained"]["chunks"] + out["stream_seeded"]["chunks"]
+    log(f"export phase: {wall:.1f} s; launches B1 "
+        f"{totals['attn_weights']['launches']}, B2 "
+        f"{totals['fbank']['launches']}, every call held (worst B1 "
+        f"{totals['attn_weights']['max_abs_err']:.3g}, B2 log "
+        f"{totals['fbank']['max_abs_err']:.3g}); by run: " + ", ".join(
+            f"{name} {h['launches']['attn_weights']}/"
+            f"{h['launches']['fbank']}" for name, h in held.items()), card)
+    out.update(wall_s=wall, held_runs=held)
+    report["export"] = out
+    return {kern: dict(t, program_launches=sum(
+        held[p]["launches"][kern] for p in progs),
+        program_launches_per_chunk=sum(
+            held[p]["launches"][kern] for p in progs) / chunks,
+        onnx_custom_op_nodes=0)
+        for kern, t in totals.items()}
+
+
 def metrics_of(workdir):
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -4984,6 +5429,7 @@ def main(argv):
         families = phase_task_families(card, report, tmp, run)
         encoders = phase_ctc_encoders(card, report, tmp, run)
         deploy = phase_deploy(card, report, tmp, run)
+        export = phase_export(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -5012,7 +5458,7 @@ def main(argv):
              rnnt_family=family["attn_weights"],
              task_families=families["attn_weights"],
              ctc_encoders=encoders["attn_weights"],
-             deploy=deploy["attn_weights"]),
+             deploy=deploy["attn_weights"], export=export["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -5029,13 +5475,16 @@ def main(argv):
              stream=stream["fbank"], conformer=conformer["fbank"],
              rnnt_family=family["fbank"],
              task_families=families["fbank"],
-             ctc_encoders=encoders["fbank"], deploy=deploy["fbank"]),
+             ctc_encoders=encoders["fbank"], deploy=deploy["fbank"],
+             export=export["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer", "rnnt_family", "deploy") + (
             ("stream", "conformer") if k["name"] == "fbank" else ())
         assert k["deploy"]["exported_launches"] > 0, \
             f"{k['name']} never launched inside the exported programs"
+        assert (k["export"]["program_launches"] > 0) == (
+            k["name"] == "fbank"), k["export"]
         for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"

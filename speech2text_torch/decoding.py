@@ -278,14 +278,16 @@ class RnntGreedyDecoding:
                              device=device)
         return state, pred_out, tokens, counts
 
-    @torch.no_grad()
     def continue_frames(self, enc_out: torch.Tensor, carry: Carry,
                         enc_lens: Optional[torch.Tensor] = None) -> Carry:
         """The frame loop over enc_out (B, T, D) from `carry` (predictor
         state, predictor output, tokens (B, max_tokens), counts (B,)) →
         the carry after the last frame. Frames at or past `enc_lens`
         emit nothing; without `enc_lens` every frame is active (streaming,
-        resumed chunk by chunk)."""
+        resumed chunk by chunk). Its callers run it without autograd
+        (`decode` under no_grad, the streaming session under inference
+        mode), so that an exported chunk program holds no grad-mode
+        switch."""
         state, pred_out, tokens, counts = carry
         B, T, _ = enc_out.shape
         cap = self._cap

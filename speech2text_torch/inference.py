@@ -28,8 +28,14 @@ a transducer's encoder, predictor step and joiner step are exported
 before the test loop (export.py: `encoder.pt2`, `predictor.pt2`,
 `joiner.pt2`, at `module_export_config.max_frames`, default 2000) with
 `units.txt` and, unless `module_export_config.export_int8` is false,
-`weights.int8.npz`, into `task.export_path`. `onnx_export` raises
-NotImplementedError.
+`weights.int8.npz`, into `task.export_path`. With `task.onnx_export` the
+same trio and a Zipformer2's streaming encoder are written as ONNX graphs
+(export.py:export_onnx_modules: `encoder.onnx`, `predictor.onnx`,
+`joiner.onnx`, `encoder_stream.onnx` with `encoder_stream_spec.json`,
+`units.txt` and, unless `onnx_export_config.export_int8` is false, the
+`*_int8.onnx` variants; the encoder at
+`onnx_export_config.onnx_encoder_config.max_frames`, default 2000), also
+after the weights are loaded and before the test loop.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ import torch
 
 from .config import load_config, override
 from .convert import to_flax
-from .export import export_asr_modules, save_quantized
+from .export import (export_asr_modules, export_onnx_modules,
+                     save_quantized)
 from .metrics import AsrMetric, word_error_rate
 from .tasks.factory import TaskFactory
 from .tasks.rnnt import TransducerTask
@@ -145,8 +152,6 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                             {"platform": section.get("platform")})
     task_type = _INFER_TO_TRAIN[section["type"]]
     task_cls = TaskFactory(task_type)
-    if section.get("onnx_export"):
-        raise NotImplementedError("task.onnx_export is not ported")
 
     workdir = section["export_path"]
     os.makedirs(workdir, exist_ok=True)
@@ -162,6 +167,12 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if section.get("module_export"):
         module_export(task, workdir,
                       infer_cfg.get("module_export_config") or {})
+    if section.get("onnx_export"):
+        onnx_cfg = infer_cfg.get("onnx_export_config") or {}
+        enc_cfg = onnx_cfg.get("onnx_encoder_config") or {}
+        export_onnx_modules(task, workdir,
+                            max_frames=int(enc_cfg.get("max_frames", 2000)),
+                            int8=bool(onnx_cfg.get("export_int8", True)))
     return {"task": task, "device": device, "workdir": workdir,
             "infer_config": infer_cfg, "train_config": train_cfg}
 

@@ -372,7 +372,8 @@ class AttentionWeights(nn.Module):
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streaming: queries are the chunk (C), keys the cache (L) then
         the chunk. cached_k (B, L, H·qd) projected keys, filled from the
-        right; `valid_cache` the host count of real cached frames;
+        right; `valid_cache` the count of real cached frames (a host int,
+        or a 0-dim tensor in an exported program);
         pos_table the embeddings of offsets −(L+C−1)..L+C−1
         (CompactRelPositionalEncoding.table(L + C − 1)). Returns (weights
         (B, H, C, L+C) in the layer's dtype, the new key cache).
@@ -401,9 +402,15 @@ class AttentionWeights(nn.Module):
         scores = scores + torch.gather(
             rel, 3, idx.expand(B, H, C, L + C)) / math.sqrt(pd)
         scores = scores.clamp(-100.0, 100.0)
-        unfilled = L - min(int(valid_cache), L)
-        if unfilled:
-            scores[..., :unfilled] = NEG
+        if isinstance(valid_cache, torch.Tensor):
+            # an exported program carries the count as a tensor (JAX's
+            # int32 `processed`): the same mask, computed on the device
+            unfilled = L - torch.clamp(valid_cache, max=L)
+            scores = torch.where(s < unfilled, NEG, scores)
+        else:
+            unfilled = L - min(int(valid_cache), L)
+            if unfilled:
+                scores[..., :unfilled] = NEG
         weights = torch.softmax(scores, dim=-1).to(self.dtype)
         return weights, keys[:, keys.shape[1] - L:]
 

@@ -21,18 +21,22 @@ asks for the CPU) under `torch.inference_mode()`, so no cache carries an
 autograd graph, and reads nothing back from the card within a chunk.
 The state also holds the last chunk's encoder output (`enc_out`); the
 profiler spans of a chunk are `featurize`, `encoder` and `greedy`.
+`program_state` and `program_chunk` give the state in JAX's layout and
+the chunk function on it that export.py:export_streaming_session traces
+into `stream_prime.pt2` / `stream_step.pt2`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .decoding import RnntGreedyDecoding, ids_to_texts
+from .decoding import RnntGreedyDecoding, _map_state, ids_to_texts
 from .models.zipformer import Zipformer2
 from .train.loop import resolve_device
 
@@ -72,6 +76,7 @@ class StreamingAsrSession:
             + fb.frame_length
         self.step_samples = self._step_frames * fb.frame_shift
         self.chunk_ms = 1000.0 * self.step_samples / fb.sample_rate
+        self.cap = int(max_tokens)
         self.greedy = RnntGreedyDecoding(
             self.model.predictor_step, self.model.predictor.init_state,
             self.model.joiner_step, max_token_step=max_token_step,
@@ -110,17 +115,19 @@ class StreamingAsrSession:
         return self.task.cmvn(feats)[:, :n_frames]
 
     def _chunk(self, pcm: torch.Tensor, state: Dict[str, Any],
-               prime: bool) -> Dict[str, Any]:
+               prime: bool, spans: bool = True) -> Dict[str, Any]:
         enc = self.model.encoder
+        span = record_function if spans else (
+            lambda name: contextlib.nullcontext())
         if not prime:
             pcm = torch.cat([state["pcm_tail"], pcm], dim=1)
-        with record_function("featurize"):
+        with span("featurize"):
             feats = self._featurize(
                 pcm, self._prime_frames if prime else self._step_frames)
-        with record_function("encoder"):
+        with span("encoder"):
             run = enc.streaming_prime if prime else enc.streaming_step
             enc_out, enc_state = run(feats, state["enc"])
-        with record_function("greedy"):
+        with span("greedy"):
             pred_state, pred_out, tokens, counts = \
                 self.greedy.continue_frames(
                     enc_out, (state["pred_state"], state["pred_out"],
@@ -128,6 +135,51 @@ class StreamingAsrSession:
         return {"enc": enc_state, "pred_state": pred_state,
                 "pred_out": pred_out, "tokens": tokens, "counts": counts,
                 "pcm_tail": pcm[:, -self._tail:], "enc_out": enc_out}
+
+    # --------------------------------------------------- exported programs
+    def program_state(self, state: Optional[Dict[str, Any]] = None,
+                      batch_size: int = 1) -> Dict[str, Any]:
+        """A state in the layout of the exported programs, which is JAX's
+        (speech2text_tpu/streaming.py): `processed` an int32 0-dim tensor
+        and no `chunk_size` in the encoder state, the predictor state (an
+        integer one), tokens and counts in int32, no `enc_out`, and every
+        dict's keys sorted, as jax.tree_util flattens them. Without
+        `state`: the state before the first chunk, whose `pred_out` is
+        None as JAX's (the prime program primes the predictor)."""
+        if state is None:
+            state = self.init_state(batch_size)
+            state["pred_state"] = self.model.predictor.init_state(
+                batch_size, self.device)
+            state["pred_out"] = None
+        enc = {k: v for k, v in state["enc"].items() if k != "chunk_size"}
+        enc["processed"] = torch.as_tensor(enc["processed"],
+                                           dtype=torch.int32,
+                                           device=self.device)
+        tree = {"enc": enc, "pred_out": state["pred_out"],
+                "pred_state": _map_state(_int32, state["pred_state"]),
+                "tokens": _int32(state["tokens"]),
+                "counts": _int32(state["counts"]),
+                "pcm_tail": state["pcm_tail"]}
+        return _sorted(tree)
+
+    def program_chunk(self, pcm: torch.Tensor, tree: Dict[str, Any],
+                      prime: bool) -> Dict[str, Any]:
+        """One chunk on a `program_state` tree → the next tree: the
+        function that export.export_streaming_session traces, without the
+        profiler spans and the inference mode of `prime`/`step`."""
+        B = pcm.shape[0]
+        enc = dict(tree["enc"], chunk_size=self.chunk)
+        pred_state = _map_state(_int64, tree["pred_state"])
+        pred_out = tree["pred_out"]
+        if pred_out is None:
+            pred_out, pred_state = self.model.predictor_step(
+                torch.zeros((B,), dtype=torch.int64, device=pcm.device),
+                pred_state)
+        state = {"enc": enc, "pred_state": pred_state, "pred_out": pred_out,
+                 "tokens": _int64(tree["tokens"]),
+                 "counts": _int64(tree["counts"]),
+                 "pcm_tail": tree["pcm_tail"]}
+        return self.program_state(self._chunk(pcm, state, prime, spans=False))
 
     # ------------------------------------------------------------- public
     @torch.inference_mode()
@@ -181,3 +233,20 @@ class StreamingAsrSession:
                 self._fence()
                 lat.append((time.perf_counter() - t0) * 1e3)
         return self.texts(state), lat
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_floating_point() else t.to(torch.int32)
+
+
+def _int64(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_floating_point() else t.to(torch.int64)
+
+
+def _sorted(tree: Any) -> Any:
+    """Every dict of `tree` with its keys sorted."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_sorted(v) for v in tree)
+    return tree

@@ -12,10 +12,13 @@ and no such request it raises.
     python -m speech2text_torch.tools.stream_demo \\
         --train_config <export_path>/<name>/<training yaml> \\
         --wav a.wav [b.wav ...] [--chunk_size 32] [--left_chunks 4] \\
-        [--avg_best_k 2] [--checkpoints_dir DIR] [--device cpu]
+        [--avg_best_k 2] [--checkpoints_dir DIR] [--device cpu] \\
+        [--export_dir DIR]
 
-The JAX tool's `--export_dir` (StableHLO export of the chunk graph) is not
-ported: asking for it raises NotImplementedError.
+With `--export_dir` the session's chunk path is first exported
+(export.py:export_streaming_session: `stream_prime.pt2`,
+`stream_step.pt2` and `streaming_spec.json`, traced on the session's
+device), then the wavs are streamed, as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..data.audio import read_wav
+from ..export import export_streaming_session
 from ..inference import _resolve, inference_train_config
 from ..streaming import StreamingAsrSession
 from ..tasks.rnnt import PrunedRnntTask
@@ -47,7 +51,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--export_dir", default=None,
-                    help="the streaming-session export (not ported)")
+                    help="export the session's prime and step "
+                         "programs here first")
     return ap.parse_args(argv)
 
 
@@ -62,12 +67,10 @@ def latency_summary(lat: List[float], chunk_ms: float) -> Dict[str, float]:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Stream each wav; returns {"session", "results": [{"wav",
-    "seconds", "text", "latency_ms", "summary"}, ...]}."""
+    """Export the session if asked, then stream each wav; returns
+    {"session", "exported" (the export's paths, or None), "results":
+    [{"wav", "seconds", "text", "latency_ms", "summary"}, ...]}."""
     args = parse_args(argv)
-    if args.export_dir:
-        raise NotImplementedError("stream_demo --export_dir (the "
-                                  "streaming-session export) is not ported")
     device = resolve_device(args.device, {})
     cfg = inference_train_config(
         {"task": {"train_config": _resolve(args.train_config)}})
@@ -81,6 +84,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     sess = StreamingAsrSession(task, chunk_size=args.chunk_size,
                                left_context_chunks=args.left_chunks,
                                device=device)
+    exported = None
+    if args.export_dir:
+        exported = export_streaming_session(sess, args.export_dir)
+        print(f"serving graph exported: {exported}")
     sr = task.frontend.cfg.sample_rate
     print(f"chunk = {sess.step_samples} samples ({sess.chunk_ms:.0f} ms "
           f"audio), prime = {sess.prime_samples} samples, device {device}")
@@ -103,7 +110,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         results.append({"wav": wav, "seconds": len(pcm) / sr,
                         "text": texts[0], "latency_ms": lat,
                         "summary": summary})
-    return {"session": sess, "results": results}
+    return {"session": sess, "exported": exported, "results": results}
 
 
 if __name__ == "__main__":

@@ -305,13 +305,12 @@ def test_unported_options_raise(setup, monkeypatch):
         # the full-lattice tasks refuse a pruned joiner
         with pytest.raises(ValueError, match="prune_range"):
             tinf.main(base + ["--override", ov])
-    for ov in ("task.onnx_export=true",
-               "decoding.type=ctc_greedy_search",
+    for ov in ("decoding.type=ctc_greedy_search",
                "decoding.type=ctc_prefix_beam_search"):
         with pytest.raises(NotImplementedError):
             tinf.main(base + ["--override", ov])
-    # int8 decoding and module_export are ported (tests/test_torch_quant.py,
-    # tests/test_torch_export.py)
+    # int8 decoding, module_export and onnx_export are ported
+    # (tests/test_torch_quant.py, tests/test_torch_export.py)
     cfg = dict(setup["train_config"], metric={"int8": True})
     assert isinstance(PrunedRnntTask(cfg).decode_session, Int8Decoding)
     infer = _streaming_infer(setup["train_config"])

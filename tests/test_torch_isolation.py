@@ -46,7 +46,10 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.quant, speech2text_torch.export, "
         "speech2text_torch.runtime_binding, "
         "speech2text_torch.tools.model_average, "
-        "speech2text_torch.tools.prepare_manifest\n"
+        "speech2text_torch.tools.prepare_manifest, "
+        "speech2text_torch.onnx, speech2text_torch.onnx.convert, "
+        "speech2text_torch.onnx.proto, speech2text_torch.onnx.run, "
+        "speech2text_torch.onnx.quantize\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
