@@ -182,6 +182,23 @@ Phases (any failed check raises and the script exits non-zero):
      magnitude (the streaming graph's first call from the zero state
      recorded and held with the frontend projection kept f32), no
      custom-op node; export and runner seconds;
+ 19. data parallelism and FSDP (phase_parallel): the flagship YAML on
+     phase 10's corpus (bf16, augmentation and dropout off, every bucket
+     at B=16, PAR_STEPS steps and one evaluation) through build_task's
+     main in this process, then through torchrun ranks of this script
+     (--parallel-rank): (a) world 1 over NCCL with DDP and (b) with
+     trainer.fsdp, each against the one-process run (losses, grad_norm,
+     step-6 parameters: bitwise or within PAR_SAME_RTOL, the worst
+     printed); (c) 2 ranks on the one card over gloo against it step by
+     step (loss and grad_norm within PAR_LOSS_RTOL / PAR_GRAD_RTOL); (d)
+     inference of seeded f32 weights (TF32 off) over 2 gloo ranks: rank
+     0's report equals one process's byte for byte. In every rank every
+     B1 and B2 launch is counted (counts set to 0 before each main, read
+     after) and held to its plain version as it returns (HeldCalls); every
+     process runs deterministic algorithms. The two torchrun jobs run
+     beside the one-process reference; once the rest is done, the 2-rank
+     run times PAR_TIMED_STEPS steps per rank (ms, peak memory) and
+     profiles one for its collectives;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -213,7 +230,8 @@ launches, per step, per test batch, calls checked, worst error; wav2vec2:
 launches inside the reloaded exported programs), and under "export"
 phase 18's (launches over the phase, calls held, worst error, launches
 inside the reloaded streaming programs and per chunk, the ONNX graphs'
-custom-op nodes: 0).
+custom-op nodes: 0), and under "parallel" phase 19's (launches over the
+phase's ranks, per run and rank, calls held, worst error).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -642,12 +660,7 @@ def phase_breakdown(server, reqs, layer_shapes, card, report):
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, memcpy/memset): the host ops that
     # launched them carry the same time and would count it twice
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
+    rows, busy, _ = profile_summary(prof)
     if busy > 0:
         log(f"profiled request: wall {wall:.2f} ms, device busy "
             f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
@@ -980,22 +993,31 @@ STREAM_SPANS = ("featurize", "encoder", "greedy")
 EXTRA_SPANS = ("data", "ctc_loss", "rnnt_loss", "regularizers_backward")
 
 
+def raw_events(prof):
+    """(name, on the device, ms) of every event of a finished profile,
+    read from the profiler's raw results: key_averages() and events()
+    first build a Python event per op, which takes tens of seconds for a
+    training step's ~10^4 ops."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.device_type() == cuda, e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()]
+
+
 def profile_summary(prof, span_names=SPANS):
     """A profiled step's device rows (key, ms, count; kernels and copies,
     largest first), their busy ms, and the host ms of each span of
     `span_names`. The spans' GPU-side annotations cover kernels already
     counted and are left out of the rows."""
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0
-            and e.key not in SPANS + STREAM_SPANS + EXTRA_SPANS]
-    rows.sort(key=lambda r: -r[1])
-    spans = {}
-    for e in prof.events():
-        if e.name in span_names and e.device_type != cuda:
-            spans[e.name] = spans.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    device, spans = {}, {}
+    for name, on_device, ms in raw_events(prof):
+        if on_device:
+            if ms > 0 and name not in SPANS + STREAM_SPANS + EXTRA_SPANS:
+                total, n = device.get(name, (0.0, 0))
+                device[name] = (total + ms, n + 1)
+        elif name in span_names:
+            spans[name] = spans.get(name, 0.0) + ms
+    rows = sorted(((k, ms, n) for k, (ms, n) in device.items()),
+                  key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows), spans
 
 
@@ -2699,8 +2721,8 @@ def dynamics_profile(step_fn, card, label):
         wall = (time.perf_counter() - t0) * 1e3
     assert all(math.isfinite(float(v)) for v in out.values()), out
     rows, busy, spans = profile_summary(prof, names)
-    n_reg = sum(1 for e in prof.events()
-                if e.name == "regularizers_backward")
+    n_reg = sum(1 for name, on_device, _ in raw_events(prof)
+                if name == "regularizers_backward" and not on_device)
     assert n_reg > 0, f"{label}: no regularizers_backward span in the trace"
     log(f"profiled {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {sum(r[2] for r in rows)} device ops;"
@@ -5313,6 +5335,490 @@ def in_turns(earlier, this, name):
     return {"prev_ms": [t[0], t[3]], "this_ms": [t[1], t[2]]}
 
 
+# ------------------------------------------------------------ phase 19
+PAR_STEPS = 6               # steps of each phase-19 training run
+PAR_TIMED_STEPS = 3         # steps timed per rank after a run (no holding)
+# bucket volume: every bucket's batch at min_batch_size (16), so a world
+# of 1 and of 2 (batches rounded up to even) see the same global batches
+PAR_VOLUME = 32.0
+PAR_BUCKETS = 2             # 3 eval batches of 16 for phase 10's 32
+PAR_JOB_TIMEOUT = 600
+# 2 gloo ranks against one process, bf16 on other per-rank batch shapes
+# (B=8 for 16): each step's loss and grad_norm. The first H100 run that
+# compared them read 1.69e-4 and 2.53e-3 over 6 steps
+PAR_LOSS_RTOL = 2e-3
+PAR_GRAD_RTOL = 1e-2
+# world 1 against one process: the same arithmetic, bitwise under
+# deterministic algorithms but for FSDP's grad_norm, which sums the squares
+# of its sharded and its whole gradients apart (1.09e-7 on an H100)
+PAR_SAME_RTOL = 1e-6
+COMM_MARKS = ("nccl", "gloo", "all_reduce", "allreduce", "all_gather",
+              "allgather", "reduce_scatter", "broadcast")
+
+
+class HeldCalls:
+    """While open, every B1 and B2 launch is held against its plain
+    version as it returns: B1 as check_weights holds it, B2 as check_mel;
+    `held` counts them and `worst` keeps the largest errors (B1 absolute,
+    B2 log-domain). `close` puts the wrappers back."""
+
+    def __init__(self, label):
+        from speech2text_torch.ops import attn_weights as aw
+        from speech2text_torch.ops import fbank as fb
+        self.label = label
+        self.held = {"attn_weights": 0, "fbank": 0}
+        self.worst = {"attn_weights": 0.0, "fbank": 0.0}
+        self._wrapped = ((aw, "attn_weights_cuda", aw.attn_weights_cuda),
+                         (fb, "fbank_cuda", fb.fbank_cuda))
+        aw.attn_weights_cuda = self._hold_b1(aw.attn_weights_cuda)
+        fb.fbank_cuda = self._hold_b2(fb.fbank_cuda, fb.fbank_plain)
+
+    def _hold_b1(self, fn):
+        def wrapped(*args):
+            out = fn(*args)
+            n = self.held["attn_weights"]
+            with torch.no_grad():
+                err = check_weights(f"{self.label} B1 call {n}",
+                                    out.detach(), *args)
+            self.held["attn_weights"] = n + 1
+            self.worst["attn_weights"] = max(self.worst["attn_weights"], err)
+            return out
+        return wrapped
+
+    def _hold_b2(self, fn, plain):
+        def wrapped(*args):
+            out = fn(*args)
+            n = self.held["fbank"]
+            with torch.no_grad():
+                want = plain(*args)
+                check_mel(f"{self.label} B2 call {n}", out, want)
+                err = float((out - want).abs().max())
+            self.held["fbank"] = n + 1
+            self.worst["fbank"] = max(self.worst["fbank"], err)
+            return out
+        return wrapped
+
+    def close(self):
+        for mod, attr, fn in self._wrapped:
+            setattr(mod, attr, fn)
+
+
+def held_main(label, fn, argv):
+    """`fn(argv)` (build_task's or inference's main) with the kernel
+    counts set to 0 just before it and read just after, every launch held
+    (HeldCalls); returns (its result, its record)."""
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.ops import fbank as fb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = HeldCalls(label)
+    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        held.close()
+    launches = {"attn_weights": aw.KERNEL.launches,
+                "fbank": fb.KERNEL.launches}
+    assert held.held == launches, \
+        f"{label}: {held.held} calls held of {launches} launched"
+    return result, {"launches": launches, "calls_held": held.held,
+                    "max_abs_err": held.worst,
+                    "wall_s": time.perf_counter() - t0,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def par_train_argv(tmp, corpus, name, *overrides):
+    """build_task's argv for phase 19: the flagship YAML on phase 10's
+    corpus, augmentation and dropout off, PAR_BUCKETS buckets of 16
+    utterances, a metrics line every step, PAR_STEPS steps (one
+    evaluation and checkpoint, at the last)."""
+    argv = ["--training_config", TRAIN_CFG, "--max_steps", str(PAR_STEPS)]
+    for ov in (f"task.export_path={tmp}/tasks", f"task.name={name}",
+               f"dataset.base_dir={tmp}/corpus",
+               f"dataset.bucket_sampler_config.volume_threshold={PAR_VOLUME}",
+               f"dataset.bucket_sampler_config.num_bucket={PAR_BUCKETS}",
+               "dataset.data_aug_config.use_speed_perturb=false",
+               "dataset.data_aug_config.use_spec_aug=false",
+               "dataset.data_aug_config.use_add_noise=false",
+               "dataset.data_aug_config.use_mix_feats=false",
+               "encoder.config.dropout=0.0",
+               "encoder.config.feature_mask_dropout_prob=0.0",
+               "trainer.log_interval=1") + overrides:
+        argv += ["--override", ov]
+    for key, path in corpus.items():
+        argv += ["--override", f"dataset.{key}={path}"]
+    return argv
+
+
+def par_timed_steps(trainer, gate):
+    """Once the file `gate` exists (the card free of the phase's other
+    work), PAR_TIMED_STEPS steps of `trainer` on its rank's slice of the
+    first global batch after a warm-up step, each synchronised (ms per
+    step and peak memory), then one step under torch.profiler (host
+    activity: the gloo collectives run on the host): its wall ms and the
+    host time of each collective op (c10d's and the backend's)."""
+    from torch.profiler import ProfilerActivity, profile
+    from speech2text_torch import parallel
+    t0 = time.perf_counter()
+    while not os.path.exists(gate):
+        assert time.perf_counter() - t0 < PAR_JOB_TIMEOUT, f"no {gate}"
+        time.sleep(0.2)
+    pipe = trainer.task.make_train_pipeline(
+        parallel.rank(), parallel.world_size(), seed=trainer.seed,
+        pin_memory=True)
+    it = iter(pipe)
+    batch = trainer.to_device(next(it))
+    it.close()
+    trainer.train_step(batch, 1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(PAR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(batch, 1001 + i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, 1100)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    comm = {}
+    for name, _, dur in raw_events(prof):
+        if any(m in name.lower() for m in COMM_MARKS):
+            rec = comm.setdefault(name, {"count": 0, "host_ms": 0.0})
+            rec["count"] += 1
+            rec["host_ms"] += dur
+    return {"B": int(batch["pcm"].shape[0]), "N": int(batch["pcm"].shape[1]),
+            "ms_per_step": ms, "peak_memory_bytes": peak,
+            "profiled_wall_ms": wall, "comm": comm}
+
+
+def par_runs(runs):
+    """The runs in turn in this process (build_task's or inference's
+    main, each held by held_main; a training run with a `timing_gate`
+    timed after it), under deterministic algorithms; returns their
+    records and the first lines of the warnings of ops that have no
+    deterministic version."""
+    import warnings
+    from speech2text_torch import build_task, inference, parallel
+    records = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for run in runs:
+            label = f"{run['name']} rank {parallel.rank()}"
+            fn = build_task.main if run["kind"] == "train" \
+                else inference.main
+            result, rec = held_main(label, fn, run["argv"])
+            rec.update(rank=parallel.rank(), world=parallel.world_size())
+            if run["kind"] == "train":
+                rec["fsdp"] = sum(parallel.is_sharded(p)
+                                  for p in result.model.parameters())
+                rec["last_eval"] = result.last_eval
+                # host clock between step ends past the first (held)
+                hist = result.history
+                rec["held_ms_per_step"] = [
+                    1e3 * (b["end"] - a["end"])
+                    for a, b in zip(hist, hist[1:]) if a["eval_s"] == 0.0]
+                if "timing_gate" in run:
+                    rec["timed"] = par_timed_steps(result, run["timing_gate"])
+            else:
+                rec.update(wer=result["wer"], num_utts=result["num_utts"],
+                           batches=result["batches"],
+                           report=result["report"])
+            records[run["name"]] = rec
+            del result
+            torch.cuda.empty_cache()
+    records["nondeterministic"] = sorted({
+        str(w.message).split("\n")[0] for w in caught
+        if "deterministic" in str(w.message)})
+    return records
+
+
+def deterministic(on):
+    """Deterministic algorithms on (warning where an op has none) or
+    back off; returns nothing."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def par_rank_main(spec_path):
+    """Phase 19's side in one torchrun rank: TF32 off, deterministic
+    algorithms, the spec's runs (par_runs); the records go to
+    <out>/rank<r>.json."""
+    from speech2text_torch import parallel
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic(True)
+    records = par_runs(spec["runs"])
+    with open(os.path.join(spec["out"], f"rank{parallel.rank()}.json"),
+              "w") as f:
+        json.dump(records, f, default=str)
+    parallel.shutdown()
+    return 0
+
+
+def start_ranks(label, nproc, backend, runs, out):
+    """The runs in `nproc` torchrun ranks of this script over `backend`,
+    started; finish_ranks waits for them."""
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"runs": runs, "out": out}, f)
+    env = dict(os.environ, S2T_DIST_BACKEND=backend)
+    os.makedirs("chiprun_out", exist_ok=True)
+    logfile = open(os.path.join("chiprun_out", f"parallel_{label}.log"),
+                   "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+         "--parallel-rank", spec],
+        env=env, stdout=logfile, stderr=subprocess.STDOUT, text=True)
+    return {"label": label, "nproc": nproc, "backend": backend,
+            "runs": runs, "out": out, "proc": proc, "log": logfile,
+            "t0": time.perf_counter()}
+
+
+def finish_ranks(job, card):
+    """Wait for a job of start_ranks; returns each rank's records and
+    the job's wall seconds (its output: chiprun_out/parallel_<label>
+    .log)."""
+    proc = job["proc"]
+    try:
+        rc = proc.wait(timeout=max(PAR_JOB_TIMEOUT - (time.perf_counter()
+                                                     - job["t0"]), 1))
+    finally:
+        job["log"].close()
+    wall = time.perf_counter() - job["t0"]
+    if rc != 0:
+        with open(job["log"].name) as f:
+            print(f.read()[-12000:], file=sys.stderr)
+        raise AssertionError(f"parallel {job['label']}: exit {rc}")
+    ranks = []
+    for r in range(job["nproc"]):
+        with open(os.path.join(job["out"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    walls = [(run["name"], round(ranks[0][run["name"]]["wall_s"], 1))
+             for run in job["runs"]]
+    log(f"parallel {job['label']}: {job['nproc']} rank(s) over "
+        f"{job['backend']}, {wall:.1f} s (start-up included), runs (name, "
+        f"s) {walls}; ops with no deterministic version: "
+        f"{ranks[0]['nondeterministic'] or 'none'}", card)
+    return ranks, wall
+
+
+def par_state(workdir):
+    from speech2text_torch.train.checkpoint import CheckpointManager
+    return CheckpointManager(os.path.join(workdir, "checkpoints")).restore(
+        PAR_STEPS)
+
+
+def par_param_diff(got, want):
+    """(bitwise equal, the largest difference relative to each tensor's
+    largest entry, over tensors above 1e-6, and its tensor)."""
+    same = all(torch.equal(got[k], v) for k, v in want.items())
+    worst = max((float((got[k].float() - v.float()).abs().max()
+                       / v.float().abs().max()), k)
+                for k, v in want.items() if float(v.float().abs().max())
+                > 1e-6)
+    return same, worst[0], worst[1]
+
+
+def phase_parallel(card, report, tmp, trained):
+    """Phase 19: data parallelism and FSDP through torchrun ranks of
+    build_task and inference on phase 10's corpus and flagship YAML: (a)
+    world 1 over NCCL with DDP and (b) with FSDP against the same steps in
+    one process; (c) 2 ranks on the card over gloo against it, step by
+    step; (d) inference of seeded f32 weights over 2 gloo ranks, its
+    report against one process's. Every B1 and B2 launch of every rank is
+    counted and held to its plain version. Every process of the phase
+    runs deterministic algorithms (par_rank_main): the one-process
+    reference is a process of its own, as each rank is."""
+    from speech2text_torch.config import dumps, load_config
+    from speech2text_torch.tasks.rnnt import RnntModel
+    from speech2text_torch.train.checkpoint import CheckpointManager
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()          # the card is shared with the ranks
+    corpus = trained["corpus"]
+    root = os.path.join(tmp, "par")
+    os.makedirs(root, exist_ok=True)
+    # an f32 copy of phase 10's resolved config and seeded f32 weights
+    cfg = load_config(os.path.join(trained["workdir"],
+                                   os.path.basename(TRAIN_CFG)))
+    for section in ("encoder", "predictor", "joiner"):
+        sec = cfg[section].get("config", cfg[section])
+        sec["dtype"] = "float32"
+    f32_yaml = os.path.join(root, "train_f32.yaml")
+    with open(f32_yaml, "w") as f:
+        f.write(dumps(cfg))
+    model = RnntModel.from_config(cfg)
+    model.init_weights(torch.Generator().manual_seed(SEED + 19))
+    CheckpointManager(os.path.join(root, "ckpt_f32")).save(
+        1, {"model": model.state_dict()}, {"wer": 0.5})
+    del model
+
+    def infer_argv(name):
+        return ["--inference_config", CFG,
+                "--override", f"task.train_config={f32_yaml}",
+                "--override", f"task.export_path={root}/infer/{name}",
+                "--override", f"task.checkpoints_dir={root}/ckpt_f32",
+                "--override", "task.chkpt_aver=false",
+                "--override", f"testset.test_data={corpus['eval_data']}"]
+
+    # both jobs run beside the one-process reference; the 2-rank job's
+    # timed steps wait for `gate`, written when the rest is done
+    gate = os.path.join(root, "timing_gate")
+    jobs = [start_ranks("world2", 2, "gloo", [
+        {"name": "ddp2", "kind": "train", "timing_gate": gate,
+         "argv": par_train_argv(root, corpus, "ddp2")},
+        {"name": "infer2", "kind": "infer", "argv": infer_argv("ranks")}],
+        os.path.join(root, "w2"))]
+    jobs.append(start_ranks("world1", 1, "nccl", [
+        {"name": "ddp1", "kind": "train",
+         "argv": par_train_argv(root, corpus, "ddp1")},
+        {"name": "fsdp1", "kind": "train",
+         "argv": par_train_argv(root, corpus, "fsdp1", "trainer.fsdp=true")}],
+        os.path.join(root, "w1")))
+    try:
+        t0 = time.perf_counter()
+        deterministic(True)         # as the ranks run (TF32 is off here)
+        try:
+            one = [par_runs([
+                {"name": "one", "kind": "train",
+                 "argv": par_train_argv(root, corpus, "one")},
+                {"name": "infer1", "kind": "infer",
+                 "argv": infer_argv("one")}])]
+        finally:
+            deterministic(False)
+        one_s = time.perf_counter() - t0
+        log(f"parallel one process: {one_s:.1f} s; ops with no "
+            f"deterministic version: {one[0]['nondeterministic'] or 'none'}",
+            card)
+        w1, w1_s = finish_ranks(jobs[1], card)
+        with open(gate, "w"):
+            pass
+        w2, w2_s = finish_ranks(jobs[0], card)
+    finally:
+        for job in jobs:
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
+    ref_dir = os.path.join(root, "tasks", "one")
+    ref_lines = metrics_of(ref_dir)
+    with open(one[0]["infer1"]["report"], "rb") as f:
+        ref_report = f.read()
+    ref_utts = one[0]["infer1"]["num_utts"]
+
+    out = {"one_s": one_s, "world1_s": w1_s, "world2_s": w2_s,
+           "nondeterministic": sorted({op for ranks in (one, w1, w2)
+                                       for r in ranks
+                                       for op in r["nondeterministic"]})}
+    ref_state = par_state(ref_dir)["model"]
+    n_layers = RUN_LAYERS
+    for name, ranks in (("one", one), ("ddp1", w1), ("fsdp1", w1),
+                        ("ddp2", w2)):
+        recs = [r[name] for r in ranks]
+        world = len(recs)
+        assert all(r["world"] == world for r in recs), recs
+        assert (recs[0]["fsdp"] > 0) == name.startswith("fsdp"), recs[0]
+        # PAR_STEPS steps and the evaluation's batches, 1 B2 per step (no
+        # noise batch) and per eval batch
+        for r in recs:
+            n_eval = r["launches"]["fbank"] - PAR_STEPS
+            assert n_eval > 0 and r["launches"]["attn_weights"] == \
+                n_layers * (PAR_STEPS + n_eval), (name, r["launches"])
+        workdir = os.path.join(root, "tasks", name)
+        lines = metrics_of(workdir)
+        assert [x["step"] for x in lines] == list(range(1, PAR_STEPS + 1))
+        loss_err = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                       for g, w in zip(lines, ref_lines))
+        grad_err = max(abs(g["grad_norm"] - w["grad_norm"])
+                       / abs(w["grad_norm"])
+                       for g, w in zip(lines, ref_lines))
+        same, worst, at = par_param_diff(par_state(workdir)["model"],
+                                         ref_state)
+        evals = [r["last_eval"] for r in recs]
+        assert all(e == evals[0] for e in evals), evals
+        rec = {"world": world, "loss_rel_err": loss_err,
+               "grad_norm_rel_err": grad_err, "params_bitwise": same,
+               "params_worst_rel": worst, "params_worst_at": at,
+               "last_eval": evals[0],
+               "ranks": [{k: r[k] for k in (
+                   "launches", "calls_held", "max_abs_err", "wall_s",
+                   "peak_memory_bytes", "held_ms_per_step", "timed")
+                   if k in r} for r in recs]}
+        if name == "one":
+            pass                # the reference itself
+        elif world == 1:
+            assert loss_err <= PAR_SAME_RTOL and grad_err <= PAR_SAME_RTOL \
+                and worst <= PAR_SAME_RTOL, (name, rec)
+        else:
+            assert loss_err <= PAR_LOSS_RTOL and \
+                grad_err <= PAR_GRAD_RTOL, (name, rec)
+        out[name] = rec
+        timed = [r["timed"] for r in recs if "timed" in r]
+        if timed:
+            timing = (
+                f"; alone on the card, ms/step per rank at B={timed[0]['B']}"
+                f" {[[round(x, 2) for x in t['ms_per_step']] for t in timed]}"
+                f", peak memory per rank "
+                f"{[round(t['peak_memory_bytes'] / 2**30, 3) for t in timed]}"
+                f" GiB, a profiled step "
+                f"{[round(t['profiled_wall_ms'], 2) for t in timed]} ms with"
+                f" collectives (host) {[t['comm'] for t in timed]}")
+        else:
+            timing = ""
+        log(f"parallel {name} ({world} rank(s)): {PAR_STEPS} steps against "
+            f"one process: loss rel err {loss_err:.3g}, grad_norm "
+            f"{grad_err:.3g}, parameters "
+            f"{'bitwise equal' if same else 'differ'} (worst rel "
+            f"{worst:.3g} at {at}); eval {evals[0]}; launches per rank "
+            f"{[r['launches'] for r in recs]}, all held; peak memory of the "
+            f"held run per rank "
+            f"{[round(r['peak_memory_bytes'] / 2**30, 3) for r in recs]} "
+            f"GiB, held step ms (median) per rank "
+            f"{[round(statistics.median(r['held_ms_per_step']), 2) for r in recs]}"
+            f"{timing}", card)
+    # (d) the sharded report: rank 0 wrote one process's bytes
+    infer = [r["infer2"] for r in w2]
+    with open(infer[0]["report"], "rb") as f:
+        got = f.read()
+    assert got == ref_report, "2-rank report differs from one process's"
+    for r in infer + [one[0]["infer1"]]:
+        assert r["num_utts"] == ref_utts, (r["num_utts"], ref_utts)
+        assert r["launches"] == {"attn_weights": n_layers * r["batches"],
+                                 "fbank": r["batches"]}, r["launches"]
+    out["infer2"] = {"report_bytes": len(got), "ranks": [
+        {k: r[k] for k in ("launches", "calls_held", "max_abs_err",
+                           "wall_s", "wer", "num_utts", "batches")}
+        for r in infer]}
+    log(f"parallel infer2: the report of 2 gloo ranks ({len(got)} bytes, "
+        f"{infer[0]['num_utts']} utts, WER {infer[0]['wer']:.4f}) equals "
+        f"one process's byte for byte; launches per rank "
+        f"{[r['launches'] for r in infer]}", card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase {out['phase_s']:.1f} s", card)
+    report["parallel"] = out
+    runs = {name: [r[name] for r in ranks]
+            for ranks, names in ((one, ("one", "infer1")),
+                                 (w1, ("ddp1", "fsdp1")),
+                                 (w2, ("ddp2", "infer2")))
+            for name in names}
+    records = [r for recs in runs.values() for r in recs]
+    return {k: {"launches": sum(r["launches"][k] for r in records),
+                "runs": {name: [r["launches"][k] for r in recs]
+                         for name, recs in runs.items()},
+                "calls_held": sum(r["calls_held"][k] for r in records),
+                "max_abs_err": max(r["max_abs_err"][k] for r in records)}
+            for k in ("attn_weights", "fbank")}
+
+
 def phase_compare(prev_dir, enc_cfg, card, report):
     """The earlier package's public entry points against this tree's, on
     the same inputs: device time in turns and wrapper host time."""
@@ -5379,11 +5885,15 @@ def main(argv):
     ap.add_argument("--compare-with", metavar="DIR", default=None,
                     help="an earlier speech2text_torch package to time "
                          "against this tree's kernels")
+    ap.add_argument("--parallel-rank", metavar="SPEC", default=None,
+                    help=argparse.SUPPRESS)   # phase 19's torchrun ranks
 
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.parallel_rank:
+        return par_rank_main(args.parallel_rank)
     from speech2text_torch.config import load_config
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import build
@@ -5430,6 +5940,7 @@ def main(argv):
         encoders = phase_ctc_encoders(card, report, tmp, run)
         deploy = phase_deploy(card, report, tmp, run)
         export = phase_export(card, report, tmp, run)
+        par = phase_parallel(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -5458,7 +5969,8 @@ def main(argv):
              rnnt_family=family["attn_weights"],
              task_families=families["attn_weights"],
              ctc_encoders=encoders["attn_weights"],
-             deploy=deploy["attn_weights"], export=export["attn_weights"]),
+             deploy=deploy["attn_weights"], export=export["attn_weights"],
+             parallel=par["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -5476,7 +5988,7 @@ def main(argv):
              rnnt_family=family["fbank"],
              task_families=families["fbank"],
              ctc_encoders=encoders["fbank"], deploy=deploy["fbank"],
-             export=export["fbank"]),
+             export=export["fbank"], parallel=par["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer", "rnnt_family", "deploy") + (
@@ -5488,6 +6000,10 @@ def main(argv):
         for path in paths:
             assert k[path]["launches"] > 0, \
                 f"{k['name']} never launched on the {path} path"
+        for run, per_rank in k["parallel"]["runs"].items():
+            assert per_rank and all(n > 0 for n in per_rank), \
+                f"{k['name']} not launched in every rank of {run}"
+        assert k["parallel"]["calls_held"] == k["parallel"]["launches"]
         fams = k["task_families"]
         if k["name"] == "fbank":
             assert fams["cif"]["launches"] > 0 and \

@@ -29,6 +29,13 @@ before it writes anything. With `callbacks.frontend_save` the fbank
 frontend is exported on that device as `<workdir>/frontend.pt2`
 (export.py:export_frontend, B=1 × 30 s), as the JAX package's
 build_task exports it before training.
+
+Over N GPUs: `python -m torch.distributed.run --standalone
+--nproc_per_node N -m speech2text_torch.build_task ...` (the Trainer's
+data parallelism and `trainer.fsdp`: train/loop.py). The process group
+is made first; rank 0 alone writes files (the run log, the subword
+model, the config backup, cmvn.json, frontend.pt2), and the other ranks
+wait for it and then read what it wrote.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import parallel
 from .config import dumps, load_config, override
 from .data.frontend import dequant_pcm
 from .export import export_frontend
@@ -110,7 +118,8 @@ def prepare(argv: Optional[List[str]] = None
         key, _, value = ov.partition("=")
         override(config, key, value)
     trainer_cfg = config.get("trainer") or {}
-    device = resolve_device(args.device, trainer_cfg)
+    device = parallel.setup(resolve_device(args.device, trainer_cfg))
+    main_rank = parallel.is_main()
 
     task_section = config["task"]
     task_cls = TaskFactory(task_section["type"])
@@ -118,18 +127,20 @@ def prepare(argv: Optional[List[str]] = None
 
     workdir = os.path.join(task_section["export_path"], task_section["name"])
     os.makedirs(workdir, exist_ok=True)
-    init_logging(os.path.join(workdir, "run.log"))
+    init_logging(os.path.join(workdir, "run.log") if main_rank else None)
     log = get_logger()
     seed = int(config.get("seed", 1234))
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    config = spm_training_preprocess(config)
-    # the resolved config (after the tokenizer rewrite) beside the run
-    with open(os.path.join(workdir,
-                           os.path.basename(args.training_config)), "w") as f:
-        f.write(dumps(config))
+    if main_rank:
+        config = spm_training_preprocess(config)
+        # the resolved config (after the tokenizer rewrite) beside the run
+        with open(os.path.join(workdir, os.path.basename(
+                args.training_config)), "w") as f:
+            f.write(dumps(config))
+    config = parallel.broadcast_object(config)
     task = task_cls(config)
     log.info("task %s (%s): vocab=%d, device %s", task_section["name"],
              task_section["type"], len(task.tokenizer), device)
@@ -138,13 +149,15 @@ def prepare(argv: Optional[List[str]] = None
             task.cmvn.mean is None:
         path = cmvn_cb.get("pre_compute_cmvn") or os.path.join(workdir,
                                                                "cmvn.json")
-        if not os.path.exists(path):
+        if main_rank and not os.path.exists(path):
             log.info("computing global CMVN over the train set ...")
             compute_cmvn_stats(cmvn_feature_batches(task, device)).save(path)
+        parallel.barrier()
         task.cmvn = GlobalCmvn.from_file(path)
         log.info("global CMVN loaded from %s", path)
-    if cb.get("frontend_save"):
+    if cb.get("frontend_save") and main_rank:
         export_frontend(task.frontend.to(device), workdir)
+    parallel.barrier()
     finetune_state = load_finetune(config.get("finetune") or {})
     trainer = Trainer(task, config, workdir, seed=seed, device=device)
     return trainer, dict(resume=config.get("resume"),
@@ -165,4 +178,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.shutdown()

@@ -36,6 +36,15 @@ same trio and a Zipformer2's streaming encoder are written as ONNX graphs
 `*_int8.onnx` variants; the encoder at
 `onnx_export_config.onnx_encoder_config.max_frames`, default 2000), also
 after the weights are loaded and before the test loop.
+
+Over N GPUs (`python -m torch.distributed.run --nproc_per_node N -m
+speech2text_torch.inference ...`, parallel/mesh.py) the test set is
+sharded as JAX's inference.py shards it over its mesh: test batches are
+rounded up to a multiple of N rows (`batch_multiple`), every rank decodes
+its slice of each batch, and rank 0 gathers the hypotheses and writes
+the report and the WER in the order of one process, the same bytes as
+JAX's on a mesh of N devices. Rank 0 alone writes files (the log, the
+exports, the report); every rank returns the same WER.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import parallel
 from .config import load_config, override
 from .convert import to_flax
 from .export import (export_asr_modules, export_onnx_modules,
@@ -148,14 +158,15 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         key, _, value = ov.partition("=")
         override(infer_cfg, key, value)
     section = infer_cfg["task"]
-    device = resolve_device(args.device,
-                            {"platform": section.get("platform")})
+    device = parallel.setup(resolve_device(
+        args.device, {"platform": section.get("platform")}))
     task_type = _INFER_TO_TRAIN[section["type"]]
     task_cls = TaskFactory(task_type)
 
     workdir = section["export_path"]
     os.makedirs(workdir, exist_ok=True)
-    init_logging(os.path.join(workdir, "inference.log"))
+    init_logging(os.path.join(workdir, "inference.log")
+                 if parallel.is_main() else None)
     train_cfg = inference_train_config(infer_cfg)
     task = task_cls(train_cfg)
     task.model.load_state_dict(inference_weights(section, train_cfg))
@@ -164,15 +175,16 @@ def prepare(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                       task_type, len(task.tokenizer),
                       section.get("checkpoints_dir") or "the training run",
                       device)
-    if section.get("module_export"):
+    if section.get("module_export") and parallel.is_main():
         module_export(task, workdir,
                       infer_cfg.get("module_export_config") or {})
-    if section.get("onnx_export"):
+    if section.get("onnx_export") and parallel.is_main():
         onnx_cfg = infer_cfg.get("onnx_export_config") or {}
         enc_cfg = onnx_cfg.get("onnx_encoder_config") or {}
         export_onnx_modules(task, workdir,
                             max_frames=int(enc_cfg.get("max_frames", 2000)),
                             int8=bool(onnx_cfg.get("export_int8", True)))
+    parallel.barrier()
     return {"task": task, "device": device, "workdir": workdir,
             "infer_config": infer_cfg, "train_config": train_cfg}
 
@@ -197,29 +209,43 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     "num_utts" and "batches"."""
     run = prepare(argv)
     task, device = run["task"], run["device"]
+    world = parallel.world_size()
+    # JAX's inference.py:156-157: batches divisible by the data axis
+    task.data_config.batch_multiple = world
+    rows: List[List[tuple]] = []      # per batch: (utt, hyp, ref) rows
+    for batch in task.make_test_pipeline(parallel.rank(), world):
+        out = task.eval_forward(to_device(batch, device), losses=False)
+        rows.append(list(zip(batch["audio_filepath"], task.eval_hyps(out),
+                             batch["text"])))
+    if world > 1:
+        # rank r holds rows r, r + N, ... of each batch (BucketBatcher)
+        shards = parallel.all_gather_object(rows)
+        rows = [[shards[i % world][b][i // world]
+                 for i in range(world * len(rows[b]))]
+                for b in range(len(rows))]
     metric = AsrMetric()
     report_path = os.path.join(run["workdir"], "test_report.txt")
-    batches = 0
-    with open(report_path, "w") as report:
-        for batch in task.make_test_pipeline():
-            out = task.eval_forward(to_device(batch, device), losses=False)
-            hyps = task.eval_hyps(out)
-            refs = batch["text"]
-            for utt, hyp, ref in zip(batch["audio_filepath"], hyps, refs):
-                wer = word_error_rate([hyp], [ref])
-                report.write(f"utt: {utt}\nhyp: {hyp}\nref: {ref}\n"
-                             f"wer: {wer:.4f}\n\n")
-            metric.update(hyps, refs)
-            batches += 1
+    lines = []
+    for batch_rows in rows:
+        for utt, hyp, ref in batch_rows:
+            wer = word_error_rate([hyp], [ref])
+            lines.append(f"utt: {utt}\nhyp: {hyp}\nref: {ref}\n"
+                         f"wer: {wer:.4f}\n\n")
+        metric.update([r[1] for r in batch_rows], [r[2] for r in batch_rows])
     corpus_wer = metric.compute()
-    with open(report_path, "a") as report:
-        report.write(f"corpus wer: {corpus_wer:.4f} "
-                     f"({metric.num_utts} utts)\n")
-    get_logger().info("corpus WER %.4f over %d utts → %s", corpus_wer,
-                      metric.num_utts, report_path)
+    lines.append(f"corpus wer: {corpus_wer:.4f} ({metric.num_utts} utts)\n")
+    if parallel.is_main():
+        with open(report_path, "w") as report:
+            report.write("".join(lines))
+        get_logger().info("corpus WER %.4f over %d utts → %s", corpus_wer,
+                          metric.num_utts, report_path)
+    parallel.barrier()
     return dict(run, report=report_path, wer=corpus_wer,
-                num_utts=metric.num_utts, batches=batches)
+                num_utts=metric.num_utts, batches=len(rows))
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.shutdown()

@@ -6,7 +6,10 @@ and `MaeLoss` (CIF's token-count loss).
 
 Each loss is called on a dict of tensors; the CTC loss also has
 `predict(logits)`, the log-softmax its decoders read. An unknown key
-raises ValueError.
+raises ValueError. The two masked means divide by the global batch's
+count under a process group (parallel.global_count), as JAX divides the
+global batch's sum; the other losses are means over utterances, which
+the ranks' average already makes global.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from .ops.ctc import ctc_loss
 from .ops.pruned_rnnt import rnnt_loss_pruned
 from .ops.rnnt import rnnt_loss
+from .parallel import global_count
 
 
 @dataclasses.dataclass
@@ -120,7 +124,7 @@ class MaskedCeLoss:
             nll = -(tgt * lp).sum(dim=-1)
         else:
             nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        return (nll * mask).sum() / global_count(mask.sum())
 
 
 @dataclasses.dataclass
@@ -145,7 +149,7 @@ class MaskedKlDivLoss:
         tgt = F.one_hot(labels, C).float() * (1.0 - eps) + eps / (C - 1)
         lp = torch.log_softmax(logits, dim=-1)
         kl = (tgt * (torch.log(tgt.clamp(min=1e-10)) - lp)).sum(dim=-1)
-        return (kl * mask).sum() / mask.sum().clamp(min=1.0)
+        return (kl * mask).sum() / global_count(mask.sum())
 
 
 @dataclasses.dataclass

@@ -10,6 +10,7 @@ from typing import Iterable, List, Sequence, Tuple
 
 import torch
 
+from .parallel import all_reduce_sum, global_count
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -87,13 +88,23 @@ class AsrMetric:
     def num_utts(self) -> int:
         return self._count
 
+    def all_reduce(self) -> None:
+        """Sum the edits, reference tokens and utterances over the ranks
+        of a process group (each rank having updated with its rows), so
+        that `compute()` is the global corpus WER."""
+        counts = all_reduce_sum(torch.tensor(
+            [self._edits, self._total, self._count], dtype=torch.float64))
+        self._edits, self._total, self._count = (int(c) for c in counts)
+
 
 def masked_topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor, k: int = 1) -> torch.Tensor:
     """The share of masked positions whose label is among the k largest
     logits; logits (..., C), labels (...), mask (...) bool or float. Equal
     logits rank by index, the lower first (lax.top_k's order): for k = 1
-    the first maximum, else a stable descending sort."""
+    the first maximum, else a stable descending sort. Under a process
+    group the share is of the global batch's positions
+    (parallel.global_count)."""
     if k == 1:
         idx = logits.argmax(dim=-1, keepdim=True)
     else:
@@ -101,4 +112,4 @@ def masked_topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                          stable=True)[1][..., :k]
     hit = (idx == labels[..., None].long()).any(dim=-1).float()
     m = mask.float()
-    return (hit * m).sum() / m.sum().clamp(min=1.0)
+    return (hit * m).sum() / global_count(m.sum())

@@ -16,7 +16,11 @@
   a limit.
 
 Both custom gradients compute their statistics in f32 and return the
-incoming gradient's dtype. As in the JAX package (and unlike icefall,
+incoming gradient's dtype. Under a process group of several ranks
+(parallel/mesh.py) every statistic over the batch (each channel's means,
+the covariance, the row means and norms) is summed over the ranks, so
+that each rank's gradient is the global batch's, as under JAX's pjit,
+scaled as the ranks' average expects. As in the JAX package (and unlike icefall,
 which applies them at random with probability `prob`), the extra gradient
 is applied on every step scaled by `prob`. The whitening metric is taken
 over every row of the (B·T, C) features, pads included, as JAX takes it.
@@ -32,6 +36,8 @@ from typing import Tuple
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from ..parallel import all_reduce_sum, world_size
 
 
 class PiecewiseLinear:
@@ -70,6 +76,23 @@ def _positive_to_mean(p: float) -> float:
 _ABS_TO_RMS = 1.25331413732  # sqrt(pi/2): E|x| → rms for normal data
 
 
+def _rows(x: torch.Tensor, dims: Tuple[int, ...]) -> int:
+    """The number of elements under `dims` over every rank, whose batches
+    have one shape (the pipelines shard each global batch evenly)."""
+    n = world_size()
+    for d in dims:
+        n *= x.shape[d]
+    return n
+
+
+def _batch_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """The mean over `dims` (kept), over every rank's rows."""
+    if world_size() == 1:
+        return torch.mean(x, dim=dims, keepdim=True)
+    return all_reduce_sum(torch.sum(x, dim=dims, keepdim=True)) \
+        / _rows(x, dims)
+
+
 def _balancer_grad(x: torch.Tensor, min_mean: float, max_mean: float,
                    min_rms: float, max_rms: float) -> torch.Tensor:
     """The gradient of Σ_c |m − clip(m)| + |log(clip(rms)/rms)| over the
@@ -81,9 +104,9 @@ def _balancer_grad(x: torch.Tensor, min_mean: float, max_mean: float,
     up (ROADMAP.md §C, reference caveat 4)."""
     x32 = x.float()
     axes = tuple(range(x.ndim - 1))
-    n = x32.numel() // x32.shape[-1]
-    uvar = torch.mean(torch.square(x32), dim=axes, keepdim=True)
-    mean = torch.mean(x32, dim=axes, keepdim=True)
+    n = _rows(x32, axes)
+    uvar = _batch_mean(torch.square(x32), axes)
+    mean = _batch_mean(x32, axes)
     var_raw = uvar - mean * mean
     var = torch.clamp(var_raw, min=1e-20)
     std = torch.sqrt(var)
@@ -117,8 +140,8 @@ class _Balancer(torch.autograd.Function):
             loss_grad = _balancer_grad(x, min_mean, max_mean, min_rms,
                                        max_rms)
             axes = tuple(range(x.ndim - 1))
-            lg_rms = torch.sqrt(torch.clamp(torch.mean(
-                torch.square(loss_grad), dim=axes, keepdim=True), min=1e-20))
+            lg_rms = torch.sqrt(torch.clamp(_batch_mean(
+                torch.square(loss_grad), axes), min=1e-20))
             loss_grad = loss_grad * (grad_scale / lg_rms)
             g32 = g.float()
             out = (g32 + torch.abs(g32) * loss_grad).to(g.dtype)
@@ -148,9 +171,9 @@ def _whitening_metric_grad(x: torch.Tensor
     JAX package's `_whitening_metric` gives it."""
     d = x.shape[-1]
     x32 = x.reshape(-1, d).float()
-    n = max(x32.shape[0], 1)
-    xc = x32 - torch.mean(x32, dim=0, keepdim=True)
-    cov = (xc.T @ xc) / n
+    n = max(_rows(x32, (0,)), 1)
+    xc = x32 - _batch_mean(x32, (0,))
+    cov = all_reduce_sum(xc.T @ xc) / n
     t = torch.trace(cov) / d
     t2 = torch.square(t)
     den = torch.clamp(t2, min=1e-20)
@@ -161,7 +184,7 @@ def _whitening_metric_grad(x: torch.Tensor
     diag = (metric / den) * (2.0 / d) * t * (t2 > 1e-20).float()
     dcov = dcov - torch.diag_embed(diag.expand(d))
     dxc = (xc @ (dcov + dcov.T)) / n
-    dx = dxc - torch.mean(dxc, dim=0, keepdim=True)
+    dx = dxc - _batch_mean(dxc, (0,))
     return metric, dx.reshape(x.shape)
 
 
@@ -180,8 +203,9 @@ class _Whiten(torch.autograd.Function):
         with record_function("regularizers_backward"):
             metric, pgrad = _whitening_metric_grad(x)
             g32 = g.float()
-            g_norm = torch.sqrt(torch.sum(torch.square(g32)))
-            p_norm = torch.sqrt(torch.sum(torch.square(pgrad))) + 1e-20
+            g_norm = torch.sqrt(all_reduce_sum(torch.sum(torch.square(g32))))
+            p_norm = torch.sqrt(all_reduce_sum(
+                torch.sum(torch.square(pgrad)))) + 1e-20
             scale = torch.where(metric > whitening_limit,
                                 grad_scale * g_norm / p_norm, 0.0)
             out = (g32 + scale * pgrad).to(g.dtype)

@@ -16,7 +16,10 @@ torch.optim.AdamW decays p by (1 − lr·wd) before the step and folds the
 bias corrections into the step size: the same update in exact
 arithmetic, other roundings. The bias corrections are computed in f32,
 as JAX computes them. The count is a host integer, so no step reads a
-value back from the card.
+value back from the card. Under FSDP (parallel/mesh.py) the moments are
+this rank's rows of a sharded parameter's, updated elementwise;
+`state_dict()` gathers whole tensors and `load_state_dict()` takes this
+rank's rows of them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Callable, Iterable, List
 
 import numpy as np
 import torch
+
+from ..parallel import gather_rows, is_sharded, local, shard_rows
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
@@ -35,6 +40,7 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
     norm + 1e-6)."""
     keep = norm < max_norm
     for g in grads:
+        g = local(g)
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
@@ -54,8 +60,8 @@ class Adam:
         self.eps = float(eps)
         self.weight_decay = float(weight_decay)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(local(p)) for p in self.params]
+        self.nu = [torch.zeros_like(local(p)) for p in self.params]
 
     def lr_at(self, count: int) -> float:
         return float(self.lr(count))
@@ -66,9 +72,12 @@ class Adam:
 
     def state_dict(self) -> dict:
         """The update count and both moments as CPU tensors."""
+        def whole(t, p):
+            return gather_rows(t, p.shape[0]).cpu() if is_sharded(p) \
+                else t.detach().cpu()
         return {"count": self.count,
-                "mu": [t.detach().cpu() for t in self.mu],
-                "nu": [t.detach().cpu() for t in self.nu]}
+                "mu": [whole(t, p) for t, p in zip(self.mu, self.params)],
+                "nu": [whole(t, p) for t, p in zip(self.nu, self.params)]}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore `state_dict()`'s output onto the parameters' devices;
@@ -78,11 +87,13 @@ class Adam:
                     t.shape != p.shape for t, p in zip(state[name],
                                                        self.params)):
                 raise ValueError(f"optimizer state {name}: shapes differ")
+        def mine(t, p):
+            if is_sharded(p):
+                t = shard_rows(t)
+            return t.to(local(p).device, copy=True).contiguous()
         self.count = int(state["count"])
-        self.mu = [t.to(p.device, copy=True)
-                   for t, p in zip(state["mu"], self.params)]
-        self.nu = [t.to(p.device, copy=True)
-                   for t, p in zip(state["nu"], self.params)]
+        self.mu = [mine(t, p) for t, p in zip(state["mu"], self.params)]
+        self.nu = [mine(t, p) for t, p in zip(state["nu"], self.params)]
 
     @torch.no_grad()
     def step(self) -> None:
@@ -91,8 +102,9 @@ class Adam:
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(c))
         bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(c))
         step_size = -self.lr_at(self.count)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        params = [local(p) for p in self.params]
+        grads = [local(p.grad) if p.grad is not None else torch.zeros_like(lp)
+                 for p, lp in zip(self.params, params)]
         self.mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
                                      torch._foreach_mul(self.mu, b1))
         sq = torch._foreach_mul(grads, grads)
@@ -104,8 +116,8 @@ class Adam:
         upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
         if self.weight_decay:
             upd = torch._foreach_add(
-                upd, torch._foreach_mul(self.params, self.weight_decay))
+                upd, torch._foreach_mul(params, self.weight_decay))
         torch._foreach_mul_(upd, step_size)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_add_(params, upd)
         self.count = c
 

@@ -24,6 +24,14 @@ Like the JAX version, tensors of one shape are stacked and updated
 together (one set of operations per shape, not per tensor); the math per
 tensor does not depend on that grouping. The step count is a host
 integer, so no step reads a value back from the card.
+
+Under FSDP (parallel/mesh.py) a group of sharded parameters holds this
+rank's rows of each tensor: the update is elementwise on them, and every
+per-tensor statistic (the clipping norm's sums of squares, the scale
+gradients Σ p·g, the parameter RMS) is summed over the ranks, so each is
+the whole tensor's. `state_dict()` gathers whole tensors and
+`load_state_dict()` takes this rank's rows of them: a checkpoint is the
+same file at any world size.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 from torch import nn
 
 from ..convert import to_flax
+from ..parallel import all_reduce_sum, gather_rows, is_sharded, local, \
+    shard_rows
 
 
 def _group_by_shape(params: List[torch.Tensor]) -> List[List[int]]:
@@ -83,14 +93,15 @@ class ScaledAdam:
         self.period = size_update_period
         self.buffer_size = norm_buffer_size
         self.groups = _group_by_shape(self.params)
-        dev = self.params[0].device
+        self.sharded = [is_sharded(self.params[g[0]]) for g in self.groups]
+        dev = local(self.params[0]).device
         self.step_count = 0
         self.norm_buffer = torch.zeros(norm_buffer_size, device=dev)
         self.delta, self.exp_avg_sq = [], []
         self.scale_exp_avg_sq, self.scale_grads, self.param_rms = [], [], []
         with torch.no_grad():
-            for idxs in self.groups:
-                p = _stack([self.params[i] for i in idxs])
+            for gi, idxs in enumerate(self.groups):
+                p = _stack([local(self.params[i]) for i in idxs])
                 n = len(idxs)
                 self.delta.append(torch.zeros_like(p))
                 self.exp_avg_sq.append(torch.zeros_like(p))
@@ -98,8 +109,7 @@ class ScaledAdam:
                 self.scale_grads.append(torch.zeros(n, self.period,
                                                     device=dev))
                 # a scalar group reduces over nothing: per-tensor |x|
-                self.param_rms.append(_per_tensor(p.square(),
-                                                  torch.mean).sqrt())
+                self.param_rms.append(self._mean(gi, p.square()).sqrt())
 
     def lr_at(self, step: int) -> float:
         return float(self.lr(step)) if callable(self.lr) else float(self.lr)
@@ -110,6 +120,29 @@ class ScaledAdam:
 
     _LISTS = ("delta", "exp_avg_sq", "scale_exp_avg_sq", "scale_grads",
               "param_rms")
+    _ROWS = ("delta", "exp_avg_sq")     # stacks of the tensors' own shape
+
+    def _sums(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each group's per-tensor sums of its stack `xs[gi]`, those of
+        sharded groups summed over the ranks in one collective."""
+        sums = [_per_tensor(x, torch.sum) for x in xs]
+        idx = [gi for gi, sh in enumerate(self.sharded) if sh]
+        if idx:
+            total = all_reduce_sum(torch.cat([sums[gi] for gi in idx]))
+            for gi, s in zip(idx, total.split([len(sums[gi])
+                                               for gi in idx])):
+                sums[gi] = s
+        return sums
+
+    def _mean(self, gi: int, x: torch.Tensor) -> torch.Tensor:
+        """The per-tensor mean of group `gi`'s stack `x`."""
+        if not self.sharded[gi]:
+            return _per_tensor(x, torch.mean)
+        n = self.params[self.groups[gi][0]].numel()
+        return all_reduce_sum(_per_tensor(x, torch.sum)) / n
+
+    def _dim0(self, gi: int) -> int:
+        return self.params[self.groups[gi][0]].shape[0]
 
     def state_dict(self) -> dict:
         """The optimizer's whole state as CPU tensors: the host step
@@ -119,7 +152,11 @@ class ScaledAdam:
                "groups": [list(g) for g in self.groups],
                "norm_buffer": self.norm_buffer.detach().cpu()}
         for name in self._LISTS:
-            out[name] = [t.detach().cpu() for t in getattr(self, name)]
+            out[name] = [
+                gather_rows(t, self._dim0(gi), dim=1).cpu()
+                if name in self._ROWS and self.sharded[gi]
+                else t.detach().cpu()
+                for gi, t in enumerate(getattr(self, name))]
         return out
 
     def load_state_dict(self, state: dict) -> None:
@@ -133,10 +170,21 @@ class ScaledAdam:
         self.norm_buffer = state["norm_buffer"].to(dev, copy=True)
         for name in self._LISTS:
             mine = getattr(self, name)
-            if len(state[name]) != len(mine) or any(
-                    a.shape != b.shape for a, b in zip(state[name], mine)):
+            if len(state[name]) != len(mine):
                 raise ValueError(f"optimizer state {name}: shapes differ")
-            setattr(self, name, [t.to(dev, copy=True) for t in state[name]])
+            new = []
+            for gi, (t, m) in enumerate(zip(state[name], mine)):
+                if name in self._ROWS and self.sharded[gi]:
+                    whole = (len(self.groups[gi]),) + tuple(
+                        self.params[self.groups[gi][0]].shape)
+                    if tuple(t.shape) != whole:
+                        raise ValueError(f"optimizer state {name}: "
+                                         f"shapes differ")
+                    t = shard_rows(t, dim=1)
+                elif t.shape != m.shape:
+                    raise ValueError(f"optimizer state {name}: shapes differ")
+                new.append(t.to(dev, copy=True).contiguous())
+            setattr(self, name, new)
 
     def _scalar_group(self, gi: int) -> bool:
         return self.params[self.groups[gi][0]].numel() <= 1
@@ -149,15 +197,14 @@ class ScaledAdam:
         G, Pm = [], []
         for idxs in self.groups:
             G.append(_stack([
-                self.params[i].grad if self.params[i].grad is not None
-                else torch.zeros_like(self.params[i]) for i in idxs]))
-            Pm.append(_stack([self.params[i] for i in idxs]))
+                local(self.params[i].grad) if self.params[i].grad is not None
+                else torch.zeros_like(local(self.params[i])) for i in idxs]))
+            Pm.append(_stack([local(self.params[i]) for i in idxs]))
 
         dev = self.norm_buffer.device
         if self.clipping_scale is not None and self.clipping_scale > 0:
             tot = torch.zeros((), device=dev)
-            for gi, g in enumerate(G):
-                sumsq = _per_tensor(g.square(), torch.sum)
+            for gi, sumsq in enumerate(self._sums([g.square() for g in G])):
                 w = (self.scalar_lr_scale ** 2 if self._scalar_group(gi)
                      else self.param_rms[gi].square())
                 tot = tot + (sumsq * w).sum()
@@ -188,10 +235,13 @@ class ScaledAdam:
         beta2_corr = b2 ** P
         bias2_size = 1.0 - beta2_corr ** max(float(size_step), 1.0)
         bias2 = 1.0 - b2 ** (step + 1.0)
+        # clip == 0 marks a non-finite step: zero the grads outright
+        G = [torch.where(clip > 0.0, g * clip, 0.0) for g in G]
+        scale_sums = self._sums([
+            torch.zeros(0, device=dev) if self._scalar_group(gi)
+            else g * p32 for gi, (g, p32) in enumerate(zip(G, Pm))])
         for gi, idxs in enumerate(self.groups):
             g, p32 = G[gi], Pm[gi]
-            # clip == 0 marks a non-finite step: zero the grads outright
-            g = torch.where(clip > 0.0, g * clip, 0.0)
             d = b1 * self.delta[gi]
             v = self.exp_avg_sq[gi]
             if self._scalar_group(gi):
@@ -201,11 +251,11 @@ class ScaledAdam:
                 upd = p32.clamp(-self.scalar_max, self.scalar_max) + d - p32
             else:
                 sgbuf = self.scale_grads[gi]
-                sgbuf[:, step % P] = _per_tensor(g * p32, torch.sum)
+                sgbuf[:, step % P] = scale_sums[gi]
                 rms = self.param_rms[gi]
                 sv = self.scale_exp_avg_sq[gi]
                 if is_boundary:
-                    rms = _per_tensor(p32.square(), torch.mean).sqrt()
+                    rms = self._mean(gi, p32.square()).sqrt()
                     sv = (beta2_corr * sv + (1.0 - beta2_corr)
                           * sgbuf.square().mean(dim=1))
                 if is_boundary and step > 0:
@@ -229,7 +279,7 @@ class ScaledAdam:
                 self.scale_exp_avg_sq[gi] = sv
             self.delta[gi] = d
             self.exp_avg_sq[gi] = v
-            torch._foreach_add_([self.params[i] for i in idxs],
+            torch._foreach_add_([local(self.params[i]) for i in idxs],
                                 [u.to(self.params[i].dtype) for i, u in
                                  zip(idxs, upd.unbind(0))])
         self.step_count = step + 1

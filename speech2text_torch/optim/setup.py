@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import torch
 
+from ..parallel import full, grad_norm, is_sharded, local, shard_rows
 from .adam import Adam, clip_by_global_norm_
 from .scaled_adam import ScaledAdam
 from .schedules import (CosineAnnealingSchedule, CosineWarmupSchedule,
@@ -94,7 +95,11 @@ class MultiSteps:
     handed to `optimizer` as the gradients, its count advancing once per
     k, and the mean restarts from zero. The accumulator and both counters
     are in `state_dict()`, as they are in optax's state, so a checkpoint
-    taken between micro-batches resumes bitwise."""
+    taken between micro-batches resumes bitwise. Under DDP every
+    micro-batch's gradients are the ranks' average before they are folded
+    in, so the mean is optax's over the global micro-batches; under FSDP
+    the accumulator of a sharded parameter is sharded as it is, and
+    `state_dict()` holds whole tensors."""
 
     def __init__(self, optimizer, every_k: int,
                  params: Iterable[torch.Tensor],
@@ -124,8 +129,7 @@ class MultiSteps:
             p.grad = acc.clone()
         if self.clip is not None:
             grads = [p.grad for p in self.params]
-            clip_by_global_norm_(grads, self.clip,
-                                 torch.nn.utils.get_total_norm(grads))
+            clip_by_global_norm_(grads, self.clip, grad_norm(grads))
         self.optimizer.step()
         for acc in self.acc:
             acc.zero_()
@@ -135,7 +139,7 @@ class MultiSteps:
     def state_dict(self) -> dict:
         return {"mini_step": self.mini_step,
                 "gradient_step": self.gradient_step,
-                "acc": [t.detach().cpu() for t in self.acc],
+                "acc": [full(t).detach().cpu() for t in self.acc],
                 "inner": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
@@ -146,8 +150,17 @@ class MultiSteps:
         self.optimizer.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
         self.gradient_step = int(state["gradient_step"])
-        self.acc = [t.to(p.device, copy=True)
+        self.acc = [self._mine(t, p)
                     for t, p in zip(state["acc"], self.params)]
+
+    @staticmethod
+    def _mine(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """A whole accumulator as `p`'s (this rank's rows if sharded)."""
+        if not is_sharded(p):
+            return t.to(p.device, copy=True)
+        acc = torch.zeros_like(p)
+        local(acc).copy_(shard_rows(t))
+        return acc
 
 
 def OptimSetup(config: Dict[str, Any],

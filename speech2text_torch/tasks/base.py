@@ -153,9 +153,11 @@ class AsrTaskBase(Featurizer):
                            shard_index=shard_index, num_shards=num_shards,
                            pin_memory=pin_memory)
 
-    def make_test_pipeline(self) -> AsrPipeline:
+    def make_test_pipeline(self, shard_index: int = 0, num_shards: int = 1
+                           ) -> AsrPipeline:
         return AsrPipeline(self.data_config.test_data, self.tokenizer,
-                           self.data_config, training=False, keep_text=True)
+                           self.data_config, training=False, keep_text=True,
+                           shard_index=shard_index, num_shards=num_shards)
 
     def step_losses(self, batch: Batch, step: int,
                     generators: Tuple[torch.Generator, ...]

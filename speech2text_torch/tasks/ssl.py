@@ -34,6 +34,7 @@ from ..models.best_rq import BestRQConfig, BestRQLayer, Draws, \
     MaskingStrategyConfig
 from ..models.factories import EncoderFactory
 from ..models.layers import Dense, init_parameters
+from ..parallel import global_count
 from .base import AsrTaskBase, Batch
 
 EVAL_MASK_SEED = 0
@@ -110,7 +111,7 @@ class SslTask(AsrTaskBase):
         with torch.no_grad():
             accs = [masked_topk_accuracy(lg, lb, sel, k=self.topk)
                     for lg, lb in pairs]
-            mask_rate = (mask2 & valid).sum() / valid.sum().clamp(min=1)
+            mask_rate = (mask2 & valid).sum() / global_count(valid.sum(), 1)
         return {"loss": torch.stack(losses).mean(),
                 "acc": torch.stack(accs).mean(), "mask_rate": mask_rate}
 

@@ -54,8 +54,29 @@ blocking. `next(train_iter)` is a `torch.profiler.record_function("data")`
 span, and `history` keeps per step the host clock at its end, its data
 wait and the seconds of an evaluation after it.
 
-Not ported, and refused when the YAML asks for them: a device mesh of
-more than one device (multi-GPU data parallelism) and FSDP.
+Multi-GPU (parallel/mesh.py): launched by torchrun, one process per
+GPU, the Trainer trains data-parallel over the ranks, as the JAX loop
+trains over its mesh's `data` axis. `trainer.mesh.data` is the number of
+ranks (-1, the default, or the world size; another number raises, and
+`model` > 1 raises NotImplementedError). The model is replicated under
+DistributedDataParallel, or with `trainer.fsdp` sharded by FSDP2 (the
+parameters and the optimizer state). Every rank takes its slice of each
+global batch (batch sizes rounded up to a multiple of the world size,
+`batch_multiple`), so a step sees the global batch of a single process;
+the loss terms that divide by a count divide by the global one, and the
+training dynamics' regularizers take their statistics over the global
+batch. Augmentation and dropout are drawn per rank (the rank folded into
+their seeds; with one process, the seeds of before), the chunk choice
+on every rank alike, as JAX makes one choice per global step. Rank 0
+alone writes `metrics.jsonl`, TensorBoard and the checkpoints (whole
+tensors, the same file at any world size, after the other ranks have
+given it their shards), and every rank waits for the write; a resume
+restores on every rank. The logged losses and metrics are the means over
+the ranks and the counters count the global batch. Evaluation is sharded
+over the ranks and combined: the mean losses over the ranks, the WER of
+everyone's edits. The watchdog decides on the largest resident set of
+the ranks, so all of them checkpoint and exit or exec-restart together
+(the restarted ranks make a new group from the same environment).
 """
 
 from __future__ import annotations
@@ -71,6 +92,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import parallel
 from ..decoding import reference_decoder
 from ..metrics import AsrMetric
 from ..optim import MultiSteps, OptimSetup
@@ -84,10 +106,12 @@ log = get_logger(__name__)
 STREAM_AUGMENT, STREAM_DROPOUT, STREAM_CHUNK = 0, 1, 2
 
 
-def step_seed(seed: int, step: int, stream: int) -> int:
-    """A 63-bit seed that is a function of (seed, step, stream)."""
-    state = np.random.SeedSequence((seed, step, stream)).generate_state(
-        1, np.uint64)
+def step_seed(seed: int, step: int, stream: int,
+              rank: Optional[int] = None) -> int:
+    """A 63-bit seed that is a function of (seed, step, stream) and, when
+    given, the rank."""
+    key = (seed, step, stream) + (() if rank is None else (rank,))
+    state = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return int(state[0] >> np.uint64(1))
 
 
@@ -123,16 +147,6 @@ def restart_argv() -> List[str]:
     return [sys.executable] + sys.argv
 
 
-def _check_unported(tcfg: Dict[str, Any]) -> None:
-    mesh = tcfg.get("mesh") or {}
-    if any(int(mesh.get(axis, 1)) not in (-1, 1)
-           for axis in ("data", "model")):
-        raise NotImplementedError(f"trainer.mesh {mesh}: multi-GPU data or "
-                                  f"model parallelism is not ported")
-    if tcfg.get("fsdp"):
-        raise NotImplementedError("trainer.fsdp is not ported")
-
-
 def _merge_state(model: torch.nn.Module,
                  loaded: Dict[str, torch.Tensor]) -> int:
     """Non-strict finetune load: copy the entries of `loaded` whose name
@@ -154,8 +168,11 @@ class Trainer:
                  seed: int = 17,
                  device: Union[str, torch.device, None] = None):
         tcfg = config.get("trainer") or {}
-        _check_unported(tcfg)
-        self.device = resolve_device(device, tcfg)
+        self.device = parallel.setup(resolve_device(device, tcfg))
+        mcfg = tcfg.get("mesh") or {}
+        self.mesh = parallel.make_mesh(parallel.MeshConfig(
+            data=int(mcfg.get("data", -1)), model=int(mcfg.get("model", 1))))
+        self.fsdp = bool(tcfg.get("fsdp", False))
         self.task = task
         self.config = config
         self.workdir = workdir
@@ -167,6 +184,10 @@ class Trainer:
             log.info("pretrained encoder loaded from %s",
                      config["encoder"]["config"]["pretrained_path"])
         task.to(self.device)
+        # the bare model (state dicts, the optimizer's parameters); the
+        # task's `model` becomes the data-parallel one in init_state
+        self.model = task.model
+        self._wrapped = False
         self.optimizer = None
         self.schedule = None
         self.max_epochs = tcfg.get("max_epochs")
@@ -180,8 +201,12 @@ class Trainer:
             os.path.join(workdir, "checkpoints"),
             save_top_k=int(ck.get("save_top_k", 10)),
             monitor=ck.get("monitor", "wer"), mode=ck.get("mode", "min"))
-        self._metrics_file = open(os.path.join(workdir, "metrics.jsonl"), "a")
-        self._tb = TensorBoardWriter(os.path.join(workdir, "tb"))
+        self._saved_step = self.ckpt.latest_step()
+        self._metrics_file = self._tb = None
+        if parallel.is_main():
+            self._metrics_file = open(os.path.join(workdir, "metrics.jsonl"),
+                                      "a")
+            self._tb = TensorBoardWriter(os.path.join(workdir, "tb"))
         self._gens = (torch.Generator(self.device),
                       torch.Generator(self.device), torch.Generator())
         self._pin = self.device.type == "cuda"
@@ -190,23 +215,29 @@ class Trainer:
         self.finetune_copied = 0
 
     def close(self) -> None:
-        self._metrics_file.close()
-        self._tb.close()
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._tb.close()
 
     # ------------------------------------------------------------- state
     def init_state(self, resume: Optional[str] = None,
                    finetune_state: Optional[Dict[str, torch.Tensor]] = None
                    ) -> int:
-        """Finetune weights merged over the seeded init, the optimizer
-        built on them, then the latest checkpoint of `resume` (a
-        checkpoint directory) or of this run restored over both; returns
-        the step to start from."""
-        model = self.task.model
+        """Finetune weights merged over the seeded init, the model
+        wrapped for the ranks (parallel.wrap_model), the optimizer built
+        on it, then the latest checkpoint of `resume` (a checkpoint
+        directory) or of this run restored over both; returns the step to
+        start from."""
+        model = self.model
         if finetune_state is not None:
             self.finetune_copied = _merge_state(model, finetune_state)
             log.info("loaded finetune base weights: %d of the base's %d "
                      "tensors copied", self.finetune_copied,
                      len(finetune_state))
+        if not self._wrapped:
+            self.task.model = parallel.wrap_model(model, self.mesh,
+                                                  self.fsdp)
+            self._wrapped = True
         self.optimizer, self.schedule = OptimSetup(
             self.config["optim_setup"], model.named_parameters())
         self.step_clip = self.clip
@@ -230,17 +261,22 @@ class Trainer:
             log.warning("checkpoint of seed %s resumed with seed %d: the "
                         "steps after it differ from the original run's",
                         state.get("seed"), self.seed)
-        model.load_state_dict(state["model"])
+        parallel.load_full_state(model, state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         return int(step)
 
     def save(self, step: int, metrics: Dict[str, float]) -> None:
-        """Checkpoint `step`: copied to the host, then written."""
-        state = {"model": {k: v.detach().cpu() for k, v in
-                           self.task.model.state_dict().items()},
-                 "optimizer": self.optimizer.state_dict(),
-                 "step": step, "seed": self.seed}
-        self.ckpt.save(step, state, metrics=dict(metrics))
+        """Checkpoint `step`: copied to the host (whole tensors: under
+        FSDP every rank gives its shards), written by rank 0; every rank
+        returns once it is written."""
+        if parallel.is_main() or self.fsdp:
+            state = {"model": parallel.full_state(self.model),
+                     "optimizer": self.optimizer.state_dict(),
+                     "step": step, "seed": self.seed}
+            if parallel.is_main():
+                self.ckpt.save(step, state, metrics=dict(metrics))
+        parallel.barrier()
+        self._saved_step = step
 
     # -------------------------------------------------------------- step
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -259,10 +295,13 @@ class Trainer:
                    ) -> Tuple[torch.Generator, torch.Generator,
                               torch.Generator]:
         """The step's augmentation, dropout (device) and chunk (host)
-        generators."""
+        generators; with several ranks the first two are the rank's own
+        and the chunk generator is every rank's."""
+        rank = self.mesh.rank if self.mesh.data > 1 else None
         for g, stream in zip(self._gens, (STREAM_AUGMENT, STREAM_DROPOUT,
                                           STREAM_CHUNK)):
-            g.manual_seed(step_seed(self.seed, step, stream))
+            g.manual_seed(step_seed(self.seed, step, stream,
+                                    None if stream == STREAM_CHUNK else rank))
         return self._gens
 
     def train_step(self, batch: Dict[str, Any], step: int
@@ -287,7 +326,10 @@ class Trainer:
             finetune_state: Optional[Dict[str, torch.Tensor]] = None,
             max_steps: Optional[int] = None) -> Dict[str, float]:
         task = self.task
-        train_pipe = task.make_train_pipeline(seed=self.seed,
+        # every rank's slice of one global batch (JAX's loop.py:125)
+        task.data_config.batch_multiple = self.mesh.data
+        train_pipe = task.make_train_pipeline(self.mesh.rank, self.mesh.data,
+                                              seed=self.seed,
                                               pin_memory=self._pin)
         steps_per_epoch = max(train_pipe.batches_per_epoch(), 1)
         if max_steps is None:
@@ -304,10 +346,12 @@ class Trainer:
         if step:
             train_pipe.skip_batches(step)
             log.info("data pipeline fast-forwarded to batch %d", step)
-        log.info("training: %d steps (%d/epoch, accum %d) on %s",
-                 max_steps, steps_per_epoch, self.accum, self.device)
+        log.info("training: %d steps (%d/epoch, accum %d) on %s, rank %d "
+                 "of %d%s", max_steps, steps_per_epoch, self.accum,
+                 self.device, self.mesh.rank, self.mesh.data,
+                 ", fsdp" if self.fsdp and parallel.active() else "")
         t_last = time.time()
-        utts, frames, waits = 0, 0, []
+        utts, units, waits = 0, [], []
         metrics: Dict[str, torch.Tensor] = {}
         train_iter = iter(train_pipe)
         try:
@@ -317,62 +361,86 @@ class Trainer:
                     batch = next(train_iter)
                 wait = time.perf_counter() - t0
                 waits.append(wait)
-                n_utts, n_frames = self._counts(batch)
-                utts, frames = utts + n_utts, frames + n_frames
+                n_utts, n_units = self._counts(batch)
+                utts += n_utts
+                units.append(n_units)
                 metrics = self.train_step(self.to_device(batch), step)
                 step += 1
                 rec = {"step": step, "end": time.perf_counter(),
                        "data_wait_s": wait, "eval_s": 0.0}
                 if step % self.log_interval == 0:
-                    self._log(step, metrics, utts, frames, waits,
+                    self._log(step, metrics, utts, units, waits,
                               time.time() - t_last)
-                    t_last, utts, frames, waits = time.time(), 0, 0, []
+                    t_last, utts, units, waits = time.time(), 0, [], []
                 if step % val_every == 0 or step == max_steps:
                     t0 = time.perf_counter()
                     self.last_eval = self.evaluate()
                     self.save(step, self.last_eval)
                     rec["eval_s"] = time.perf_counter() - t0
                 self.history.append(rec)
-                if self.max_rss_gb and step % self.log_interval == 0 \
-                        and rss_gb() > self.max_rss_gb:
-                    self._rss_exit(step)
-                    return self.last_eval
+                if self.max_rss_gb and step % self.log_interval == 0:
+                    rss = parallel.all_reduce_max(rss_gb())
+                    if rss > self.max_rss_gb:
+                        self._rss_exit(step, rss)
+                        return self.last_eval
         finally:
             train_iter.close()
         return self.last_eval
 
     def _counts(self, batch: Dict[str, Any]) -> Tuple[int, int]:
-        """The loop's counters of a host batch, as JAX's loop counts:
-        (utterances, fbank frames of the PCM at the frontend's hop, 160
-        samples for the PCM frontend), or for a text batch (rows,
-        tokens)."""
-        if "pcm_length" in batch:
-            hop = getattr(getattr(self.task.frontend, "cfg", None),
-                          "frame_shift", 160)
-            lens = batch["pcm_length"]
-            return len(lens), int(np.asarray(lens, np.int64).sum()) // hop
-        lens = batch["text_length"]
+        """The loop's counters of a host batch: (utterances, PCM samples),
+        or for a text batch (rows, tokens)."""
+        lens = batch["pcm_length"] if "pcm_length" in batch \
+            else batch["text_length"]
         return len(lens), int(np.asarray(lens, np.int64).sum())
 
-    def _rss_exit(self, step: int) -> None:
-        """The watchdog's way out at `step`: checkpoint, flush, then
+    def _frames(self, units: List[int]) -> int:
+        """The frames of steps of `units` (global batches), as JAX's loop
+        counts them: each step's samples over the frontend's hop (160 for
+        the PCM frontend), rounded down; a text batch's tokens."""
+        frontend = getattr(self.task, "frontend", None)
+        if frontend is None:
+            return sum(units)
+        hop = getattr(getattr(frontend, "cfg", None), "frame_shift", 160)
+        return sum(u // hop for u in units)
+
+    def _rss_exit(self, step: int, rss: float) -> None:
+        """The watchdog's way out at `step` (every rank together, `rss`
+        the largest resident set of the ranks): checkpoint, flush, then
         exec the same command line (`rss_restart`) or return."""
         log.warning("host RSS %.1f GB > max_rss_gb %.1f at step %d: "
-                    "checkpointing and %s", rss_gb(), self.max_rss_gb, step,
+                    "checkpointing and %s", rss, self.max_rss_gb, step,
                     "exec-restarting" if self.rss_restart else "exiting")
-        if self.ckpt.latest_step() != step:
+        if self._saved_step != step:
             self.save(step, self.last_eval)
-        self._metrics_file.flush()
-        self._tb.flush()
+        if self._metrics_file is not None:
+            self._metrics_file.flush()
+            self._tb.flush()
         if self.rss_restart:
+            parallel.prepare_restart()
             sys.stdout.flush()
             sys.stderr.flush()
             argv = restart_argv()
             os.execv(argv[0], argv)
 
     def _log(self, step: int, metrics: Dict[str, torch.Tensor], utts: int,
-             frames: int, waits: List[float], dt: float) -> None:
+             units: List[int], waits: List[float], dt: float) -> None:
         host = {k: float(v) for k, v in metrics.items() if k != "frames"}
+        if self.mesh.data > 1:
+            # the means over the ranks (global-batch values); the counters
+            # summed over the ranks step by step
+            keys = sorted(host)
+            dev = metrics[keys[0]].device
+            vals = parallel.all_reduce_sum(torch.cat([
+                torch.stack([metrics[k].detach().double() for k in keys]),
+                torch.tensor([utts] + units, dtype=torch.float64,
+                             device=dev)])).tolist()
+            host = {k: v / self.mesh.data for k, v in zip(keys, vals)}
+            utts = int(vals[len(keys)])
+            units = [int(u) for u in vals[len(keys) + 1:]]
+        if not parallel.is_main():
+            return
+        frames = self._frames(units)
         rec = {"step": step, "loss": host.get("train_loss", 0.0),
                "lr": float(self.schedule(step // self.accum)),
                "utts_per_sec": utts / dt, "frames_per_sec": frames / dt,
@@ -391,25 +459,35 @@ class Trainer:
     def evaluate(self) -> Dict[str, float]:
         """Validation losses and metrics (the mean over eval batches) and,
         for a task that decodes, the WER of its decoder, over one epoch
-        of the eval pipeline."""
+        of the eval pipeline; with several ranks, each takes its slice of
+        every batch, the means are averaged over the ranks and the WER is
+        of all their edits (a global-batch evaluation, as JAX's)."""
         task = self.task
-        pipe = task.make_eval_pipeline(pin_memory=self._pin)
+        pipe = task.make_eval_pipeline(self.mesh.rank, self.mesh.data,
+                                       pin_memory=self._pin)
         metric = AsrMetric()
         scalars: Dict[str, list] = {}
-        for batch in pipe:
-            arrays = {k: v for k, v in batch.items()
-                      if not isinstance(v, list)}
-            out = task.eval_forward(self.to_device(arrays))
-            for k, v in out.items():
-                if v.ndim == 0:
-                    scalars.setdefault(k, []).append(float(v))
-            hyps = task.eval_hyps(out)
-            if hyps:
-                refs = reference_decoder(np.asarray(batch["label"]),
-                                         np.asarray(batch["label_length"]),
-                                         task.tokenizer)
-                metric.update(hyps, refs)
+        with parallel.gathered(self.model):
+            for batch in pipe:
+                arrays = {k: v for k, v in batch.items()
+                          if not isinstance(v, list)}
+                out = task.eval_forward(self.to_device(arrays))
+                for k, v in out.items():
+                    if v.ndim == 0:
+                        scalars.setdefault(k, []).append(float(v))
+                hyps = task.eval_hyps(out)
+                if hyps:
+                    refs = reference_decoder(
+                        np.asarray(batch["label"]),
+                        np.asarray(batch["label_length"]), task.tokenizer)
+                    metric.update(hyps, refs)
         result = {k: float(np.mean(v)) for k, v in scalars.items()}
+        if self.mesh.data > 1:
+            keys = sorted(result)
+            vals = parallel.all_reduce_sum(torch.tensor(
+                [result[k] for k in keys], dtype=torch.float64)).tolist()
+            result = {k: v / self.mesh.data for k, v in zip(keys, vals)}
+            metric.all_reduce()
         if metric.num_utts:
             result["wer"] = metric.compute()
         log.info("eval: %s (%d utts)",

@@ -50,6 +50,7 @@ from torch.profiler import record_function
 
 from ..config import load_config
 from ..optim import OptimSetup, clip_by_global_norm_
+from ..parallel import grad_norm as global_grad_norm
 from ..tasks.base import Featurizer
 from ..tasks.rnnt import RnntModel, loss_fn_of, sample_chunk, train_losses
 
@@ -74,7 +75,10 @@ def take_step(model: torch.nn.Module,
     forward; a dict with "loss", the other losses and "frames"),
     backward, the gradient norm, clipping to `clip` by optax's rule, the
     optimizer. Returns the losses, "grad_norm" (before clipping) and
-    "frames" as 0-d tensors on the device."""
+    "frames" as 0-d tensors on the device. Under DDP the gradients are
+    the ranks' average when backward returns, and under FSDP their shards
+    (parallel/mesh.py): the norm and the clipping are the global
+    gradient's."""
     optimizer.zero_grad()
     losses = losses_fn()
     with record_function("backward"):
@@ -82,7 +86,7 @@ def take_step(model: torch.nn.Module,
     with record_function("optimizer"):
         with torch.no_grad():
             grads = [p.grad for p in model.parameters() if p.grad is not None]
-            grad_norm = torch.nn.utils.get_total_norm(grads)
+            grad_norm = global_grad_norm(grads)
             if clip is not None:
                 clip_by_global_norm_(grads, clip, grad_norm)
         optimizer.step()

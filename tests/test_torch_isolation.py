@@ -49,7 +49,8 @@ def test_import_pulls_in_no_jax():
         "speech2text_torch.tools.prepare_manifest, "
         "speech2text_torch.onnx, speech2text_torch.onnx.convert, "
         "speech2text_torch.onnx.proto, speech2text_torch.onnx.run, "
-        "speech2text_torch.onnx.quantize\n"
+        "speech2text_torch.onnx.quantize, speech2text_torch.parallel, "
+        "speech2text_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -306,10 +306,22 @@ def test_tb_writer_bytes_equal_jax(tmp_path, monkeypatch):
 
 def test_unported_options_raise(corpus, tmp_path):
     workdir = str(tmp_path / "x")
-    for key, value in (("mesh", {"data": 2, "model": 1}), ("fsdp", True)):
-        cfg = _config(corpus, workdir, **{key: value})
-        with pytest.raises(NotImplementedError):
-            Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
+    # a model axis (tensor parallelism) is not ported
+    cfg = _config(corpus, workdir, mesh={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
+    # data parallelism is ported (tests/test_torch_parallel.py): a data
+    # axis of another size than the ranks launched raises
+    cfg = _config(corpus, workdir, mesh={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="data = 2, but 1 process"):
+        Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
+    # FSDP over one process replicates, as JAX's shard_params on one device
+    cfg = _config(corpus, workdir, mesh={"data": -1, "model": 1}, fsdp=True)
+    trainer = Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu")
+    assert trainer.mesh.shape == {"data": 1, "model": 1} and trainer.fsdp
+    trainer.init_state()
+    assert trainer.task.model is trainer.model
+    trainer.close()
     # gradient accumulation is ported (tests/test_torch_loop_options.py)
     cfg = _config(corpus, workdir, accumulate_grad_batches=2)
     assert Trainer(PrunedRnntTask(cfg), cfg, workdir, device="cpu").accum == 2
