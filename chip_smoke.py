@@ -76,7 +76,7 @@ Phases (any failed check raises and the script exits non-zero):
      trace), every B2 call held to the plain version (linear mel), the
      encoder no more than BF16_STREAM_RMS_RATIO times as far from the f32
      offline encoder as the bf16 offline encoder, token agreement
-     reported; (c) latency at chunk 32 over 31 chunks at B=1 and B=16
+     reported; (c) latency at chunk 32 over 16 chunks at B=1 and B=16
      (the prime apart; steady p50/p95/max, RTF = p50 / 640 ms), one
      profiled steady chunk (device busy share, device ops, host spans
      featurize / encoder / greedy) and B2's device time at the chunk's
@@ -175,7 +175,7 @@ Phases (any failed check raises and the script exits non-zero):
      launch per chunk, every B2 call held; the same with phase 12's
      seeded weights loaded, tokens compared > 0; the reloaded step's p50
      against the eager step's, in turns; (b) inference.main with
-     task.onnx_export (1 x 2000 frames): the nine artifacts and
+     task.onnx_export (1 x 1000 frames): the nine artifacts and
      encoder_stream_spec.json, every graph in the port's numpy runner
      on the host against the card's eager f32 model (TF32 off) within
      ENC_TOL, each int8 graph within 0.05 x its f32 graph's output
@@ -199,6 +199,25 @@ Phases (any failed check raises and the script exits non-zero):
      beside the one-process reference; once the rest is done, the 2-rank
      run times PAR_TIMED_STEPS steps per rank (ms, peak memory) and
      profiles one for its collectives;
+ 20. (recipe options) (a) kernel B2 at every FFT size a 25 ms frame takes at
+     8, 16, 32 and 48 kHz (256 to 2048 points) × snip_edges or centred
+     framing × dither off or one int16 step (DITHER_STEP): B=16 ragged
+     2-10 s clips with N % shift != 0, white noise held at FBANK_TOL and
+     band-limited audio by check_mel against the plain version given the
+     same noise, and for centred framing a clip shorter than half a
+     frame; 8 kHz centred and 16 kHz centred with dither timed at B=128
+     x 10 s beside their bounds (the noise's bytes counted); (b) the
+     flagship YAML as an 8 kHz telephony recipe (fbank at 8 kHz, centred
+     framing, dither) on an 8 kHz synthetic corpus through build_task's
+     main (TEL_STEPS steps, one evaluation; 2 B2 launches per step, the
+     speech batch's with dither) and pruned_rnnt_greedy_search through
+     inference's main, every B1 and B2 call held; (c) recompute
+     (encoder.config.remat off, "full", "dots") on phase 9's step at
+     B=128 x 10 s and on the heldout step (dynamics, dropout, given
+     draws) at B=32, deterministic algorithms: the first step's losses
+     and gradients bitwise equal to off's, peak memory ("full" below
+     off's, "dots" no higher), B1 launches per step (2x the layers under
+     "full", 1x under "dots"), ms per step;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -231,7 +250,11 @@ launches inside the reloaded exported programs), and under "export"
 phase 18's (launches over the phase, calls held, worst error, launches
 inside the reloaded streaming programs and per chunk, the ONNX graphs'
 custom-op nodes: 0), and under "parallel" phase 19's (launches over the
-phase's ranks, per run and rank, calls held, worst error).
+phase's ranks, per run and rank, calls held, worst error), and under
+"options" phase 20's (B2: the telephony runs' launches, calls held and
+worst error, each variant's calls held and errors, the timed variants;
+B1: the telephony runs' launches and, under "remat", the launches per
+step, peak memory and ms per step of each recompute setting).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -304,7 +327,7 @@ LM_WEIGHT = 0.3
 # encoder is: both round to bf16, in other summation orders
 STREAM_LEFT, STREAM_SECS = 4, 6
 STREAM_CHUNKS = (16, 32, 64)
-STREAM_TIMED_CHUNKS = 30
+STREAM_TIMED_CHUNKS = 15      # steady chunks timed and held: 9.6 s
 BF16_STREAM_RMS_RATIO = 2.0
 # phase 13: the Conformer family on phase 10's corpus
 CTC_CFG = "configs/training/conformer_ctc.yaml"
@@ -507,9 +530,9 @@ def phase_attn(enc_cfg, card, report):
 
 
 # ------------------------------------------------------------ phase 4: B2
-def band_limited_pcm(rng, B, N):
+def band_limited_pcm(rng, B, N, sr=SR):
     """Four sines below 4 kHz per utterance with a stretch of silence."""
-    t = np.arange(N) / SR
+    t = np.arange(N) / sr
     x = np.zeros((B, N))
     for b in range(B):
         for _ in range(4):
@@ -521,13 +544,20 @@ def band_limited_pcm(rng, B, N):
     return x.astype(np.float32)
 
 
-def fbank_fft_flops(frames, flen, n_mels, n_weights):
-    """Operations of the FFT kernel: per frame the DC sum, preemphasis and
-    window (4 per sample), 4 radix-4 stages of 64 butterflies (8 complex
-    adds and 3 complex multiplies: 34 each), the split into 257 bins (19
-    each), the mel runs (2 per weight) and the log (1 per mel)."""
-    return frames * (4 * flen + 4 * 64 * 34 + 19 * 257 + 2 * n_weights
-                     + n_mels)
+def fbank_fft_flops(frames, flen, n_mels, n_weights, n_fft=512,
+                    dither=False):
+    """Operations of the FFT kernel: per frame the dither (2 per sample,
+    when on), the DC sum, preemphasis and window (4 per sample), the
+    radix-4 stages of n_fft/8 butterflies (8 complex adds and 3 complex
+    multiplies: 34 each) and the radix-2 stage where n_fft/2 is not a
+    power of four (n_fft/4 butterflies of 2 complex adds: 4 each), the
+    split into n_fft/2 + 1 bins (19 each), the mel runs (2 per weight) and
+    the log (1 per mel). At 512 points: 4 stages of 64 butterflies."""
+    nc = n_fft // 2
+    log2 = nc.bit_length() - 1
+    fft = (log2 // 2) * (nc // 4) * 34 + (log2 % 2) * (nc // 2) * 4
+    return frames * ((6 if dither else 4) * flen + fft + 19 * (nc + 1)
+                     + 2 * n_weights + n_mels)
 
 
 def phase_fbank(card, report):
@@ -574,28 +604,35 @@ def phase_fbank(card, report):
     return summary
 
 
-def fbank_timing(fbank, x, card, err):
-    """Device time of the B2 kernel on the PCM `x`, the wrapper's host
-    time, the plain version's time and the bound."""
+def fbank_timing(fbank, x, card, err, noise=None):
+    """Device time of the B2 kernel on the PCM `x` in `fbank`'s framing
+    (and with the dither `noise`, scaled by the config's dither, when
+    given), the wrapper's host time, the plain version's time and the
+    bound: each input read once (the noise too), the features written
+    once."""
     from speech2text_torch.ops import fbank as fb
     from speech2text_torch.tools.timing import device_ms, events_ms, host_ms
     cfg = fbank.cfg
     B, N = x.shape
     T = cfg.num_frames(N)
-    ops = (fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks)
-    kw = dict(frame_length=cfg.frame_length, frame_shift=cfg.frame_shift,
-              preemph=cfg.preemphasis, remove_dc=cfg.remove_dc_offset)
-    _, _, weights = fb.fft_operands(*ops[1:])
-    k_ms = device_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw), fb.KERNEL.name)
-    h_ms = host_ms(lambda: fb.fbank_cuda(x, *ops, T, **kw))
-    p_ms = events_ms(lambda: fb.fbank_plain(x, *ops, T, **kw))
+    n_fft = cfg.padded_window_size
+    dither = cfg.dither if noise is not None else 0.0
+    args = (x, fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks, T,
+            cfg.frame_length, cfg.frame_shift, cfg.preemphasis,
+            cfg.remove_dc_offset, cfg.snip_edges, noise, dither)
+    _, _, weights = fb.fft_operands(*args[2:5])
+    k_ms = device_ms(lambda: fb.fbank_cuda(*args), fb.KERNEL.name)
+    h_ms = host_ms(lambda: fb.fbank_cuda(*args))
+    p_ms = events_ms(lambda: fb.fbank_plain(*args))
     flen, n_mels, n_w = cfg.frame_length, cfg.num_mel_bins, weights.numel()
-    nbytes = 4 * (B * N + B * T * n_mels + flen + 2 * fb.N_FFT
-                  + 3 * n_mels + n_w)
-    flops = fbank_fft_flops(B * T, flen, n_mels, n_w)
+    nbytes = 4 * (B * N + B * T * n_mels + flen + 2 * n_fft
+                  + 3 * n_mels + n_w
+                  + (noise.numel() if noise is not None else 0))
+    flops = fbank_fft_flops(B * T, flen, n_mels, n_w, n_fft,
+                            noise is not None)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    n_bins = fb.N_FFT // 2 + 1
+    n_bins = n_fft // 2 + 1
     dft_flops = B * T * (4 * flen * n_bins + 2 * n_bins * n_mels)
     summary = {"ms": k_ms, "host_ms": h_ms, "plain_ms": p_ms,
                "bound_ms": max(t_bytes, t_ops),
@@ -603,7 +640,9 @@ def fbank_timing(fbank, x, card, err):
                "max_abs_err": err, "fft_gflop": flops / 1e9,
                "dft_product_bound_ms": dft_flops / PEAK_FLOPS[torch.float32]
                * 1e3}
-    log(f"fbank B={B} N={N} frames={T}: device {k_ms:.4f} ms, "
+    log(f"fbank B={B} N={N} frames={T} n_fft={n_fft} "
+        f"{'snip_edges' if cfg.snip_edges else 'centred'}"
+        f"{' dither' if noise is not None else ''}: device {k_ms:.4f} ms, "
         f"wrapper host {h_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"bound {summary['bound_ms']:.4f} ms ({summary['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP f32), "
@@ -1858,7 +1897,7 @@ def phase_stream(card, report, trained):
     from speech2text_torch.ops import fbank as fb
     from speech2text_torch.streaming import StreamingAsrSession
     from speech2text_torch.tools import stream_demo
-    from speech2text_torch.tools.timing import kernel_durations_ms
+    from speech2text_torch.tools.timing import TRACES, kernel_durations_ms
     out = {}
     task16, task32, train_cfg = stream_tasks(trained)
     corpus = trained["corpus"]
@@ -1923,19 +1962,31 @@ def phase_stream(card, report, trained):
         torch.cuda.synchronize()
         calls = KernelCalls()
         try:
-            aw.KERNEL.launches = fb.KERNEL.launches = 0
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                state, outs = stream_chunks(sess, pcm)
-                torch.cuda.synchronize()
-            launches = (aw.KERNEL.launches, fb.KERNEL.launches)
-            n = len(outs)
-            assert launches == (0, n), \
-                f"chunk {chunk}: (B1, B2) launches {launches} for {n} chunks"
-            assert len(calls["fbank"]) == n and not calls["attn_weights"]
-            traced = (len(kernel_durations_ms(prof, aw.KERNEL.name)),
-                      len(kernel_durations_ms(prof, fb.KERNEL.name)))
+            # the tracer drops a kernel's record now and then (timing.py):
+            # a trace missing more than a tenth of B2's records is taken
+            # again, up to TRACES runs, each with its counts checked
+            for trace in range(1, TRACES + 1):
+                for v in calls.values():
+                    v.clear()
+                aw.KERNEL.launches = fb.KERNEL.launches = 0
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, outs = stream_chunks(sess, pcm)
+                    torch.cuda.synchronize()
+                launches = (aw.KERNEL.launches, fb.KERNEL.launches)
+                n = len(outs)
+                assert launches == (0, n), \
+                    f"chunk {chunk}: (B1, B2) launches {launches} for " \
+                    f"{n} chunks"
+                assert len(calls["fbank"]) == n and not calls["attn_weights"]
+                traced = (len(kernel_durations_ms(prof, aw.KERNEL.name)),
+                          len(kernel_durations_ms(prof, fb.KERNEL.name)))
+                if traced[1] >= n - n // 10:
+                    break
+                log(f"stream bf16 chunk {chunk}: trace {trace} holds (B1, "
+                    f"B2) records {traced} of (0, {n}) launches", card)
             assert traced[0] == 0 and n - n // 10 <= traced[1] <= n, \
-                f"chunk {chunk}: the trace holds (B1, B2) {traced}"
+                f"chunk {chunk}: the trace holds (B1, B2) {traced} in " \
+                f"each of {TRACES} runs"
             frames = set()
             for i, (a, got) in enumerate(calls["fbank"]):
                 want = fb.fbank_plain(*a)
@@ -1960,13 +2011,13 @@ def phase_stream(card, report, trained):
         bf16[chunk] = {
             "chunks": n, "pcm_samples": pcm.shape[1],
             "fbank_frames": sorted(frames), "launches": list(launches),
-            "traced": list(traced),
+            "traced": list(traced), "traces": trace,
             "enc_max_abs_diff": float((s16 - enc).abs().max()),
             "enc_rel_rms_diff": rms(s16 - enc) / rms(enc),
             "rms_ratio_vs_f32": ratio, "rows_equal": rows_equal,
             "tokens_stream": n_stream, "tokens_offline": n_off}
         log(f"stream bf16 B=2 chunk {chunk}: {n} chunks, (B1, B2) launches "
-            f"{launches}, traced {traced}, B2 frames {sorted(frames)} held "
+            f"{launches}, traced {traced} (trace {trace}), B2 frames {sorted(frames)} held "
             f"to the plain version; encoder vs offline bf16 max abs diff "
             f"{bf16[chunk]['enc_max_abs_diff']:.3g}, rel RMS "
             f"{bf16[chunk]['enc_rel_rms_diff']:.3g}, distance to f32 "
@@ -4879,7 +4930,7 @@ def phase_deploy(card, report, tmp, trained):
 
 
 # ------------------------------------------------------------ phase 18
-ONNX_FRAMES = 2000               # onnx_encoder_config.max_frames default
+ONNX_FRAMES = 1000               # 10 s; JAX's max_frames default is 2000
 ONNX_STREAM_CHUNKS = 3           # streaming-encoder graph calls checked
 ONNX_INT8_BOUND = 0.05           # tests/test_onnx.py's int8 bound
 RUNNER_OPS = frozenset((
@@ -5879,6 +5930,388 @@ def phase_compare(prev_dir, enc_cfg, card, report):
                          "attn_weights_per_request": req}
 
 
+# ------------------------------------------------------------ phase 20
+GRID_RATES = (8000, 16000, 32000, 48000)  # 25 ms frames: n_fft 256 .. 2048
+DITHER_STEP = 1.0 / 32768     # one int16 step on the [-1, 1] PCM
+GRID_B, GRID_SECS = 16, 10   # each variant: B=16 ragged clips of 2-10 s
+TEL_STEPS = 6                 # steps of the 8 kHz recipe (one evaluation)
+TEL_UTTS = (64, 16, 4)        # its corpus: train, eval, noise clips
+REMAT_STEPS = 2               # timed steps per recompute setting
+REMAT_HELDOUT_B = 32
+
+
+def fbank_args(fbank, T, noise=None):
+    """The wrapper's positional arguments after the PCM for `fbank`'s
+    config, T frames and the dither noise (scaled by the config's dither)
+    when given."""
+    cfg = fbank.cfg
+    return (fbank.window, fbank.dft_cos, fbank.dft_sin, fbank.banks, T,
+            cfg.frame_length, cfg.frame_shift, cfg.preemphasis,
+            cfg.remove_dc_offset, cfg.snip_edges, noise,
+            cfg.dither if noise is not None else 0.0)
+
+
+def fbank_variant(rate, snip, dither, rng, gen, card):
+    """One B2 variant against the plain version on the same inputs: B=16
+    ragged 2-10 s clips, N % shift != 0, white noise held at FBANK_TOL
+    and band-limited audio with silence by check_mel, each with its own
+    dither noise when `dither` > 0; and, for centred framing, a clip
+    shorter than half a frame (reflected more than once)."""
+    from speech2text_torch.data.frontend import Fbank, FbankConfig
+    from speech2text_torch.ops import fbank as fb
+    fbank = Fbank(FbankConfig(sample_rate=rate, snip_edges=snip,
+                              dither=dither)).cuda()
+    cfg = fbank.cfg
+    N = GRID_SECS * rate + 77
+    assert N % cfg.frame_shift != 0
+    lens = rng.integers(N // 5, N + 1, GRID_B)
+    lens[0] = N
+    beyond = np.arange(N)[None] >= lens[:, None]
+    T = cfg.num_frames(N)
+    errs = {}
+    for signal in ("white", "band_limited"):
+        pcm = (0.2 * rng.standard_normal((GRID_B, N))).astype(np.float32) \
+            if signal == "white" else band_limited_pcm(rng, GRID_B, N, rate)
+        pcm[beyond] = 0.0
+        x = torch.from_numpy(pcm).cuda()
+        noise = fb.dither_noise(GRID_B, T, cfg.frame_length, gen, "cuda") \
+            if dither else None
+        a = (x,) + fbank_args(fbank, T, noise)
+        got, want = fb.fbank_cuda(*a), fb.fbank_plain(*a)
+        assert got.shape == (GRID_B, T, cfg.num_mel_bins)
+        label = f"fbank n_fft={cfg.padded_window_size} snip={snip} " \
+                f"dither={dither} {signal}"
+        if signal == "white":
+            errs[signal] = check_close(label, got, want, **FBANK_TOL)
+        else:
+            errs["band_limited_of_energy"] = check_mel(label, got, want)
+            errs[signal] = float((got - want).abs().max())
+    calls = 2
+    if not snip:
+        Ns = cfg.frame_length // 2 - 7
+        Ts = cfg.num_frames(Ns)
+        x = torch.from_numpy((0.2 * rng.standard_normal((2, Ns))).astype(
+            np.float32)).cuda()
+        noise = fb.dither_noise(2, Ts, cfg.frame_length, gen, "cuda") \
+            if dither else None
+        a = (x,) + fbank_args(fbank, Ts, noise)
+        errs["short_clip"] = check_close(
+            f"fbank n_fft={cfg.padded_window_size} centred {Ns}-sample clip",
+            fb.fbank_cuda(*a), fb.fbank_plain(*a), **FBANK_TOL)
+        calls += 1
+    return {"rate": rate, "n_fft": cfg.padded_window_size,
+            "snip_edges": snip, "dither": dither, "frames": T,
+            "calls_held": calls, "max_abs_err": errs}
+
+
+def phase_fbank_grid(card, out):
+    """Phase 20 (a): every B2 variant held to its plain version, then two
+    of them timed at B=128 x 10 s."""
+    from speech2text_torch.data.frontend import Fbank, FbankConfig
+    from speech2text_torch.ops import fbank as fb
+    rng = np.random.default_rng(SEED + 20)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    cases = [fbank_variant(rate, snip, dither, rng, gen, card)
+             for rate in GRID_RATES for snip in (True, False)
+             for dither in (0.0, DITHER_STEP)]
+    for c in cases:
+        log(f"fbank variant {c['rate']} Hz n_fft={c['n_fft']} "
+            f"{'snip_edges' if c['snip_edges'] else 'centred'} dither "
+            f"{c['dither']:.3g}: {c['calls_held']} calls held, max abs err "
+            f"{ {k: float(f'{v:.3g}') for k, v in c['max_abs_err'].items()} }",
+            card)
+    timed = {}
+    for name, rate, dither in (("8k_centred", 8000, 0.0),
+                               ("16k_centred_dither", 16000, DITHER_STEP)):
+        fbank = Fbank(FbankConfig(sample_rate=rate, snip_edges=False,
+                                  dither=dither)).cuda()
+        cfg = fbank.cfg
+        x = torch.from_numpy((0.1 * rng.standard_normal(
+            (B_TRAIN, TRAIN_SECS * rate))).astype(np.float32)).cuda()
+        T = cfg.num_frames(x.shape[1])
+        noise = fb.dither_noise(B_TRAIN, T, cfg.frame_length, gen, "cuda") \
+            if dither else None
+        a = (x,) + fbank_args(fbank, T, noise)
+        err = check_close(f"fbank B={B_TRAIN} {name}", fb.fbank_cuda(*a),
+                          fb.fbank_plain(*a), **FBANK_TOL)
+        timed[name] = fbank_timing(fbank, x, card, err, noise)
+        del x, noise
+    torch.cuda.empty_cache()
+    out["fbank_grid"] = cases
+    out["fbank_timed"] = timed
+    return cases, timed
+
+
+def telephony_argv(tmp, corpus, trained):
+    """build_task's argv for the 8 kHz recipe: the flagship YAML with
+    fbank at 8 kHz, centred framing and one int16 step of dither, phase
+    10's subword model, on the 8 kHz corpus."""
+    spm = os.path.join(trained["workdir"], "spm")
+    argv = ["--training_config", TRAIN_CFG, "--max_steps", str(TEL_STEPS)]
+    for ov in (f"task.export_path={tmp}/tasks", "task.name=telephony_8k",
+               f"dataset.base_dir={tmp}/corpus8k",
+               "dataset.sample_rate=8000", "dataset.feat_type=fbank",
+               "dataset.feat_config.samplerate=8000",
+               "dataset.feat_config.snip_edges=false",
+               f"dataset.feat_config.dither={DITHER_STEP!r}",
+               f"dataset.bucket_sampler_config.volume_threshold={PAR_VOLUME}",
+               f"dataset.bucket_sampler_config.num_bucket={PAR_BUCKETS}",
+               "tokenizer.apply_train=false",
+               f"tokenizer.config.spm_model={spm}/tokenizer.model",
+               f"tokenizer.config.spm_vocab={spm}/tokenizer.vocab",
+               f"trainer.val_check_interval={TEL_STEPS}",
+               "trainer.log_interval=1"):
+        argv += ["--override", ov]
+    for key, path in corpus.items():
+        argv += ["--override", f"dataset.{key}={path}"]
+    return argv
+
+
+def dither_spy():
+    """Wrap fbank_cuda to count its calls with dither noise and with
+    centred framing; returns (counts, undo)."""
+    from speech2text_torch.ops import fbank as fb
+    inner = fb.fbank_cuda
+    seen = {"calls": 0, "dither": 0, "centred": 0}
+
+    def spy(*a):
+        seen["calls"] += 1
+        seen["dither"] += a[11] is not None
+        seen["centred"] += not a[10]
+        return inner(*a)
+
+    fb.fbank_cuda = spy
+
+    def undo():
+        fb.fbank_cuda = inner
+    return seen, undo
+
+
+def phase_telephony(card, out, tmp, trained):
+    """Phase 20 (b): the 8 kHz telephony recipe through build_task's main
+    (TEL_STEPS steps, one evaluation), then pruned_rnnt_greedy_search on
+    its checkpoint through inference's main; every B1 and B2 call held."""
+    from speech2text_torch import build_task, inference
+    from speech2text_torch.tools.synth_corpus import write_corpus
+    t0 = time.perf_counter()
+    n_train, n_eval, n_noise = TEL_UTTS
+    corpus = write_corpus(os.path.join(tmp, "corpus8k"), seed=SEED + 8,
+                          n_train=n_train, n_eval=n_eval, n_noise=n_noise,
+                          sample_rate=8000)
+    seen, undo = dither_spy()
+    try:
+        trainer, train = held_main("telephony train", build_task.main,
+                                   telephony_argv(tmp, corpus, trained))
+        train_seen = dict(seen)
+        task = trainer.task
+        fcfg = task.frontend.cfg
+        assert (fcfg.sample_rate, fcfg.padded_window_size, fcfg.snip_edges,
+                fcfg.dither) == (8000, 256, False, DITHER_STEP), fcfg
+        n_layers = sum(task.model.encoder.config.num_encoder_layers)
+        eval_batches = task.make_eval_pipeline().batches_per_epoch()
+        want = {"attn_weights": n_layers * (TEL_STEPS + eval_batches),
+                "fbank": 2 * TEL_STEPS + eval_batches}
+        assert train["launches"] == want, (train["launches"], want)
+        assert train_seen["dither"] == TEL_STEPS and \
+            train_seen["centred"] == train_seen["calls"], train_seen
+        with open(os.path.join(trainer.workdir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        assert [r["step"] for r in lines] == list(range(1, TEL_STEPS + 1))
+        assert all(_finite_record(r, ("loss", "grad_norm")) for r in lines)
+        assert _finite_record(trainer.last_eval, ("val_loss", "wer")), \
+            trainer.last_eval
+        train_cfg = os.path.join(trainer.workdir, os.path.basename(TRAIN_CFG))
+        export = os.path.join(tmp, "infer8k")
+        seen.update(calls=0, dither=0, centred=0)
+        run, infer = held_main("telephony decode", inference.main, [
+            *recipe_infer_argv(CFG, export, train_cfg, corpus),
+            "--override", "testset.config.feat_type=fbank"])
+        infer_seen = dict(seen)
+    finally:
+        undo()
+    test_batches = infer["launches"]["fbank"]
+    assert test_batches > 0 and infer["launches"]["attn_weights"] == \
+        n_layers * test_batches, infer["launches"]
+    assert infer_seen["dither"] == 0 and \
+        infer_seen["centred"] == infer_seen["calls"], infer_seen
+    with open(os.path.join(export, "test_report.txt")) as f:
+        hyps = f.read().count("\nhyp: ")
+    assert hyps == run["num_utts"] > 0, (hyps, run)
+    wall = time.perf_counter() - t0
+    log(f"telephony 8 kHz recipe (fbank n_fft=256, centred, dither "
+        f"{DITHER_STEP:.6g}): {TEL_STEPS} steps + 1 evaluation in "
+        f"{train['wall_s']:.1f} s, losses "
+        f"{[round(r['loss'], 3) for r in lines]}, eval "
+        f"{ {k: round(v, 4) for k, v in trainer.last_eval.items()} }; "
+        f"launches {train['launches']} (dither on {train_seen['dither']} "
+        f"speech batches), all held, worst {train['max_abs_err']}; greedy "
+        f"decode of {run['num_utts']} utterances in {infer['wall_s']:.1f} s, "
+        f"WER {run['wer']:.4f}, launches {infer['launches']}, all held; "
+        f"phase (b) {wall:.1f} s", card)
+    out["telephony"] = {"train": train, "infer": infer, "metrics": lines,
+                        "eval": trainer.last_eval, "wer": run["wer"],
+                        "dither_calls": train_seen["dither"], "wall_s": wall}
+    del trainer, task
+    torch.cuda.empty_cache()
+    return train, infer
+
+
+def layer_draws_for(model, B, seed):
+    """Seeded dynamics draws for every Zipformer2 layer of `model`."""
+    from speech2text_torch.models import zipformer as tz
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [tz.sample_layer_draws(B, 0.25, gen, "cuda")
+            for m in model.modules()
+            if isinstance(m, tz.Zipformer2EncoderLayer)]
+
+
+def remat_settings(cfg_path, batch_of, card, label, draws_seed=None,
+                   timed=REMAT_STEPS):
+    """One TrainStep of `cfg_path` from the seed per recompute setting
+    (off, "full", "dots"), deterministic algorithms on: the first step's
+    losses and gradients against the run without recompute bit for bit,
+    its peak memory, B1 launches per step, then `timed` steps' ms. With
+    `draws_seed` each layer is handed the same seeded dynamics draws."""
+    from speech2text_torch.config import load_config
+    from speech2text_torch.models import zipformer as tz
+    from speech2text_torch.ops import attn_weights as aw
+    from speech2text_torch.train.step import TrainStep
+    base = load_config(cfg_path)
+    rec, want = {}, None
+    for policy in (None, "full", "dots"):
+        cfg = copy.deepcopy(base)
+        cfg["encoder"]["config"].update(remat=policy is not None,
+                                        remat_policy=policy or "full")
+        ts = TrainStep(cfg, device="cuda", seed=SEED)
+        batch = batch_of(ts)
+        layers = [m for m in ts.model.modules()
+                  if isinstance(m, tz.Zipformer2EncoderLayer)]
+        if draws_seed is not None:
+            for layer, d in zip(layers, layer_draws_for(
+                    ts.model, batch[0].shape[0], draws_seed)):
+                layer.given_draws = d
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = aw.KERNEL.launches
+        t0 = time.perf_counter()
+        out = ts.step(*batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        b1 = aw.KERNEL.launches - a0
+        peak = torch.cuda.max_memory_allocated()
+        losses = {k: v.detach().clone() for k, v in out.items()}
+        # on the host: the next settings' peak memory holds no copy
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters() if p.grad is not None}
+        assert all(bool(torch.isfinite(v).all()) for v in losses.values())
+        name = policy or "off"
+        if want is None:
+            want = (losses, grads)
+            diffs = []
+        else:
+            diffs = [(k, float((v.float() - want[0][k].float()).abs().max()))
+                     for k, v in losses.items()
+                     if not torch.equal(v, want[0][k])]
+            diffs += [(k, float((g.float() - want[1][k].float()).abs().max()))
+                      for k, g in grads.items() if not torch.equal(g, want[1][k])]
+            assert grads.keys() == want[1].keys()
+        del grads
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            ts.step(*batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec[name] = {"loss": float(losses["loss"]), "first_step_ms": first_ms,
+                     "ms_per_step": times, "peak_memory_bytes": peak,
+                     "attn_weights_per_step": b1, "differs": diffs,
+                     "layers": len(layers)}
+        then = (f"then {', '.join(f'{t:.1f}' for t in times)} ms/step"
+                if times else "no step timed after it")
+        log(f"{label} remat {name}: loss {float(losses['loss']):.6f}, "
+            f"{'bitwise equal to off' if not diffs else f'differs: {diffs[:5]}'}"
+            f", first step {first_ms:.1f} ms, {then}, peak memory "
+            f"{peak / 2**30:.3f} GiB, B1 launches per step {b1}", card)
+        del ts, out, losses
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_remat(card, out):
+    """Phase 20 (c): recompute on the flagship step at bench.py's shape
+    (bf16, B=128 x 10 s) and once on the heldout step with dynamics,
+    dropout and given draws (B=32 x 10 s)."""
+    deterministic(True)
+    try:
+        flag = remat_settings(
+            TRAIN_CFG, lambda ts: bench_batch(ts.model.joiner.config.output_dim),
+            card, f"flagship step B={B_TRAIN}")
+
+        def heldout_batch(ts):
+            return tuple(t[:REMAT_HELDOUT_B] for t in
+                         bench_batch(ts.model.joiner.config.output_dim))
+        held = remat_settings(HELDOUT_CFG, heldout_batch, card,
+                              f"heldout step B={REMAT_HELDOUT_B}",
+                              draws_seed=SEED + 14, timed=0)
+    finally:
+        deterministic(False)
+    for label, rec in (("flagship", flag), ("heldout", held)):
+        n = rec["off"]["layers"]
+        for name, r in rec.items():
+            assert not r["differs"], f"{label} remat {name} differs from " \
+                f"off: {r['differs'][:10]}"
+        assert rec["off"]["attn_weights_per_step"] == n and \
+            rec["full"]["attn_weights_per_step"] == 2 * n and \
+            rec["dots"]["attn_weights_per_step"] == n, rec
+        assert rec["full"]["peak_memory_bytes"] < \
+            rec["off"]["peak_memory_bytes"], f"{label}: full's peak memory"
+        assert rec["dots"]["peak_memory_bytes"] <= \
+            rec["off"]["peak_memory_bytes"], f"{label}: dots' peak memory"
+    out["remat"] = {"flagship": flag, "heldout": held}
+    return flag, held
+
+
+def phase_options(card, report, tmp, trained):
+    """Phase 20: B2 at every FFT size, framing and dither; the 8 kHz
+    telephony recipe; Zipformer2 recompute."""
+    t0 = time.perf_counter()
+    out = {}
+    cases, timed = phase_fbank_grid(card, out)
+    grid_s = time.perf_counter() - t0
+    train, infer = phase_telephony(card, out, tmp, trained)
+    tel_s = time.perf_counter() - t0 - grid_s
+    flag, held = phase_remat(card, out)
+    out["seconds"] = {"grid": grid_s, "telephony": tel_s,
+                      "remat": time.perf_counter() - t0 - grid_s - tel_s,
+                      "phase": time.perf_counter() - t0}
+    log(f"phase 20: {out['seconds']['phase']:.1f} s (grid {grid_s:.1f}, "
+        f"telephony {tel_s:.1f}, recompute {out['seconds']['remat']:.1f})",
+        card)
+    report["options"] = out
+    runs = {"train": train, "infer": infer}
+    fbank = {
+        "launches": sum(r["launches"]["fbank"] for r in runs.values()),
+        "calls_held": sum(r["calls_held"]["fbank"] for r in runs.values()),
+        "max_abs_err": max(r["max_abs_err"]["fbank"] for r in runs.values()),
+        "launches_per_step": 2, "runs": {k: r["launches"]["fbank"]
+                                         for k, r in runs.items()},
+        "variants": [{k: c[k] for k in ("n_fft", "snip_edges", "dither",
+                                        "calls_held", "max_abs_err")}
+                     for c in cases],
+        "timed": timed}
+    attn = {
+        "launches": sum(r["launches"]["attn_weights"] for r in runs.values()),
+        "calls_held": sum(r["calls_held"]["attn_weights"]
+                          for r in runs.values()),
+        "max_abs_err": max(r["max_abs_err"]["attn_weights"]
+                           for r in runs.values()),
+        "remat": {label: {name: {k: r[k] for k in (
+            "attn_weights_per_step", "peak_memory_bytes", "ms_per_step")}
+            for name, r in rec.items()}
+            for label, rec in (("flagship", flag), ("heldout", held))}}
+    return {"fbank": fbank, "attn_weights": attn}
+
+
 def main(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5941,6 +6374,7 @@ def main(argv):
         deploy = phase_deploy(card, report, tmp, run)
         export = phase_export(card, report, tmp, run)
         par = phase_parallel(card, report, tmp, run)
+        options = phase_options(card, report, tmp, run)
     if args.compare_with:
         phase_compare(args.compare_with, enc_cfg, card, report)
 
@@ -5970,7 +6404,8 @@ def main(argv):
              task_families=families["attn_weights"],
              ctc_encoders=encoders["attn_weights"],
              deploy=deploy["attn_weights"], export=export["attn_weights"],
-             parallel=par["attn_weights"]),
+             parallel=par["attn_weights"],
+             options=options["attn_weights"]),
         dict(name="fbank", route="cuda",
              source="speech2text_torch/csrc/fbank.cu",
              replaces="speech2text_tpu/ops/pallas/fbank_kernel.py:86",
@@ -5988,7 +6423,8 @@ def main(argv):
              rnnt_family=family["fbank"],
              task_families=families["fbank"],
              ctc_encoders=encoders["fbank"], deploy=deploy["fbank"],
-             export=export["fbank"], parallel=par["fbank"]),
+             export=export["fbank"], parallel=par["fbank"],
+             options=options["fbank"]),
     ]
     for k in kernels:
         paths = ("train_run", "infer", "rnnt_family", "deploy") + (
@@ -6004,6 +6440,9 @@ def main(argv):
             assert per_rank and all(n > 0 for n in per_rank), \
                 f"{k['name']} not launched in every rank of {run}"
         assert k["parallel"]["calls_held"] == k["parallel"]["launches"]
+        assert k["options"]["launches"] > 0 and \
+            k["options"]["calls_held"] == k["options"]["launches"], \
+            k["options"]
         fams = k["task_families"]
         if k["name"] == "fbank":
             assert fams["cif"]["launches"] > 0 and \

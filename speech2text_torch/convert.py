@@ -22,8 +22,12 @@ D), hence the weight (D, 1, K); CIF's `alpha_proj` is a Dense (D, 1) →
 (1, D). Module names map one to one, flax's auto-generated names
 (`ConformerBlock_3`, `Dense_0`, ...) included, except `stack{i}` →
 `stacks.{i}`, `layer{i}` → `layers.{i}` and the feedforward's `in` →
-`in_`. Unknown keys, missing keys, shape mismatches and the
-`scan_layers` layout (a stacked `layers` subtree) raise. The Wav2Vec2
+`in_`. A checkpoint written with `scan_layers: true` (each stack's
+layers as one `layers` subtree whose leaves have a leading axis of L) is
+unstacked first into `layer0` .. `layer{L-1}`, as the JAX package's
+`unstack_layer_params` does. Unknown keys, missing keys and shape
+mismatches raise, and so does a `layers` subtree whose leaves do not
+share a leading axis. The Wav2Vec2
 encoder's flat indexed names (`conv{i}`, `norm{i}`, `attn{i}`, `ffn{i}`,
 `layer_norm{i}`, `final_layer_norm{i}`) are module names of the port as
 they stand.
@@ -59,14 +63,41 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), np.asarray(v)
 
 
+def _unstacked(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """`tree` with every `layers` subtree (the scan_layers layout, leaves
+    (L, ...)) split into `layer{i}` subtrees of the leaves' i-th rows."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if not (isinstance(v, dict) or hasattr(v, "items")):
+            out[k] = v
+        elif k != "layers":
+            out[k] = _unstacked(v, f"{prefix}{k}/")
+        else:
+            leaves = list(_flatten(v))
+            lead = {leaf.shape[0] if leaf.ndim else None
+                    for _, leaf in leaves}
+            if len(lead) != 1 or None in lead:
+                raise ValueError(
+                    f"{prefix}layers: a scan_layers subtree's leaves must "
+                    f"share a leading layer axis, got {sorted(map(str, lead))}")
+            for i in range(lead.pop()):
+                name = f"layer{i}"
+                if name in tree:
+                    raise ValueError(f"{prefix}: both {name} and a stacked "
+                                     f"scan_layers subtree")
+                node = out[name] = {}
+                for path, leaf in leaves:
+                    sub = node
+                    for part in path[:-1]:
+                        sub = sub.setdefault(part, {})
+                    sub[path[-1]] = leaf[i]
+    return out
+
+
 def _torch_key(path: Tuple[str, ...], leaf: np.ndarray
                ) -> Tuple[str, np.ndarray]:
     parts = []
     for name in path[:-1]:
-        if name == "layers":
-            raise ValueError(
-                f"{'/'.join(path)}: scan_layers layout; convert with "
-                f"speech2text_tpu's unstack_layer_params first")
         m = _INDEXED.match(name)
         if m:
             parts += [m.group(1) + "s", m.group(2)]
@@ -106,7 +137,7 @@ def _entries(params: Dict[str, Any]) -> Iterator[Tuple[str, str,
                                                        np.ndarray]]:
     """(flax path, torch key, value) of every leaf of `params`."""
     lstm: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
-    for path, leaf in _flatten(params):
+    for path, leaf in _flatten(_unstacked(params)):
         cell = [j for j, name in enumerate(path) if _LSTM.match(name)]
         if cell:
             j = cell[0]

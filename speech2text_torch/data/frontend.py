@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fbank import dft_matrices, fbank
+from ..ops.fbank import dft_matrices, fbank, max_frames_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +26,7 @@ class FbankConfig:
     frame_length_ms: float = 25.0
     frame_shift_ms: float = 10.0
     sample_rate: int = 16000
-    dither: float = 0.0  # training only, with a generator
+    dither: float = 0.0  # training only, with a generator or given noise
     preemphasis: float = 0.97
     remove_dc_offset: bool = True
     low_freq: float = 20.0
@@ -47,11 +47,8 @@ class FbankConfig:
         return 1 << (self.frame_length - 1).bit_length()  # next pow2
 
     def num_frames(self, num_samples: int) -> int:
-        if self.snip_edges:
-            if num_samples < self.frame_length:
-                return 0
-            return 1 + (num_samples - self.frame_length) // self.frame_shift
-        return (num_samples + self.frame_shift // 2) // self.frame_shift
+        return max_frames_of(num_samples, self.frame_length,
+                             self.frame_shift, self.snip_edges)
 
 
 def feat_lengths(cfg: FbankConfig,
@@ -151,10 +148,12 @@ class Fbank(nn.Module):
         return self.cfg.num_mel_bins
 
     def forward(self, pcm: torch.Tensor, sample_lengths: torch.Tensor,
-                dither_generator: torch.Generator | None = None
+                dither_generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`dither_generator` (training) draws the dither noise when the
-        config's dither is > 0."""
+        """When the config's dither is > 0 (training), `noise` (B, frames,
+        frame_length) standard normal values are the dither noise, or
+        `dither_generator` draws them."""
         cfg = self.cfg
         max_frames = cfg.num_frames(int(pcm.shape[-1]))
         if max_frames == 0:
@@ -169,7 +168,7 @@ class Fbank(nn.Module):
                           preemph=cfg.preemphasis,
                           remove_dc=cfg.remove_dc_offset,
                           snip_edges=cfg.snip_edges, dither=cfg.dither,
-                          generator=dither_generator)
+                          generator=dither_generator, noise=noise)
         lens = feat_lengths(cfg, torch.as_tensor(sample_lengths,
                                                  device=pcm.device))
         return feats, lens
@@ -183,7 +182,8 @@ class DummyFrontend(nn.Module):
     def __init__(self, dummy: int = -1, **kwargs):
         super().__init__()
 
-    def forward(self, pcm, sample_lengths, dither_generator=None):
+    def forward(self, pcm, sample_lengths, dither_generator=None,
+                noise=None):
         return pcm, sample_lengths
 
 

@@ -13,8 +13,22 @@ layer's bypass, constant attention, bypass scales clamped from below by
 a schedule, and balancers and whitening (ops/regularizers.py) at the
 JAX placements, every rate and limit a `ScheduledFloat` of the global
 `step` (1e9 when none is given), evaluated on the host. Evaluation,
-serving and streaming do not change with it. The `scan_layers` layout is
-not ported.
+serving and streaming do not change with it.
+
+Activation recompute (`remat`, `remat_policy`, as JAX's `nn.remat` of
+each layer): in training with gradients on, each layer runs under
+`torch.utils.checkpoint` (non-reentrant), inside the layer's own forward
+so that an FSDP-wrapped layer's hooks stay outside it. "full" keeps the
+layer's inputs only and recomputes the layer in the backward pass
+(kernel B1 launches again); "dots" keeps every matrix product's output
+and B1's weights (JAX's `dots_saveable` plus the named "attn_weights")
+and recomputes the rest, so B1 does not launch again. The recompute
+draws the same dropout masks: the layer's dynamics draws are taken
+before the checkpoint and handed in, and the recompute replays the
+caller's generator from its state at the layer's start, then puts it
+back. Loss and gradients equal the run without recompute bit for bit.
+The `scan_layers` layout is a checkpoint layout only (convert.py
+unstacks it); it changes no value and the forward ignores it.
 
 True streaming of a causal config (`Zipformer2.init_streaming_state`,
 `streaming_prime`, `streaming_step`): the frontend carries 8 raw fbank
@@ -41,12 +55,15 @@ unrolled JAX form; the encoder output is f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attn_weights import NEG, zip_weights
 from ..ops.masking import chunk_causal_mask, make_non_pad_mask
@@ -539,6 +556,55 @@ class ConvolutionModule(nn.Module):
             full[:, full.shape[1] - (self.kernel_size - 1):]
 
 
+# --------------------------------------------------------------- recompute
+REMAT_POLICIES = ("full", "dots")
+
+
+@functools.lru_cache(maxsize=None)
+def _dots_saved() -> frozenset:
+    """The ops whose outputs "dots" keeps: the matrix products that
+    `nn.Linear`, `Dense`, `@` and the einsums lower to (JAX's
+    dots_saveable), and kernel B1's custom op (JAX's
+    save_only_these_names("attn_weights"))."""
+    aten = torch.ops.aten
+    return frozenset((aten.mm.default, aten.addmm.default, aten.bmm.default,
+                      aten.baddbmm.default,
+                      torch.ops.speech2text_torch.attn_weights.default))
+
+
+def _dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if func in _dots_saved() \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def recomputed(policy: str, fn: Callable[..., torch.Tensor],
+               generator: Optional[torch.Generator], *args) -> torch.Tensor:
+    """`fn(*args)` under non-reentrant activation checkpointing with
+    `policy` ("full" or "dots"). `checkpoint` restores only the default
+    generators, so the recompute replays `generator` from its state at
+    this call and then puts back the state it found: the recompute draws
+    the forward's masks, and the caller's generator moves on once."""
+    state = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(now)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
+
+
 # ----------------------------------------------------------------- layer
 NO_STEP = 1e9   # the step of the schedules when none is given (JAX's)
 
@@ -589,11 +655,14 @@ class Zipformer2EncoderLayer(nn.Module):
                  query_head_dim: int, value_head_dim: int,
                  pos_head_dim: int, pos_dim: int, kernel_size: int,
                  causal: bool, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.1, dynamics: bool = False):
+                 dropout: float = 0.1, dynamics: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
         D = embed_dim
         self.dtype = dtype
         self.dynamics = dynamics
+        # "full" / "dots": recompute in training (`recomputed`); None: off
+        self.remat = remat
         # the draws of the next dynamics forward in place of sampled ones
         # (JAX's, in the parity tests); consumed by that forward
         self.given_draws: Optional[Dict[str, torch.Tensor]] = None
@@ -623,10 +692,31 @@ class Zipformer2EncoderLayer(nn.Module):
                 training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 step: Optional[float] = None) -> torch.Tensor:
+        draws = None
         if self.dynamics and training:
-            return self._dynamics_forward(
-                x, pos_emb, pad_mask, attn_mask, generator,
-                NO_STEP if step is None else float(step))
+            step = NO_STEP if step is None else float(step)
+            draws = self.given_draws
+            self.given_draws = None
+            if draws is None:
+                draws = sample_layer_draws(
+                    x.shape[0], LayerDynamics(step).const_attn, generator,
+                    x.device)
+        if self.remat and training and torch.is_grad_enabled():
+            return recomputed(self.remat, self._forward, generator, x,
+                              pos_emb, pad_mask, attn_mask, training,
+                              generator, step, draws)
+        return self._forward(x, pos_emb, pad_mask, attn_mask, training,
+                             generator, step, draws)
+
+    def _forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                 pad_mask: torch.Tensor, attn_mask: Optional[torch.Tensor],
+                 training: bool, generator: Optional[torch.Generator],
+                 step: Optional[float],
+                 draws: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """The layer, given the dynamics draws (training with dynamics)."""
+        if draws is not None:
+            return self._dynamics_forward(x, pos_emb, pad_mask, attn_mask,
+                                          generator, step, draws)
         attn_w = self.attn_weights(x, pos_emb, attn_mask)
         src = x
         x = x + self.ff1(x, training, generator)
@@ -645,15 +735,11 @@ class Zipformer2EncoderLayer(nn.Module):
                           pad_mask: torch.Tensor,
                           attn_mask: Optional[torch.Tensor],
                           generator: Optional[torch.Generator],
-                          step: float) -> torch.Tensor:
-        """The training forward with the dynamics at `step`
-        (zipformer.py:708-811 of the JAX package)."""
+                          step: float, draws: Dict[str, torch.Tensor]
+                          ) -> torch.Tensor:
+        """The training forward with the dynamics at `step` and the
+        layer's `draws` (zipformer.py:708-811 of the JAX package)."""
         dyn = LayerDynamics(step)
-        draws = self.given_draws
-        self.given_draws = None
-        if draws is None:
-            draws = sample_layer_draws(x.shape[0], dyn.const_attn,
-                                       generator, x.device)
         m_attn, m_conv1, m_conv2, m_ff2, m_ff3, m_bypass = \
             dyn.keep_masks(draws, x.dtype)
         attn_w = self.attn_weights(x, pos_emb, attn_mask)
@@ -737,7 +823,7 @@ class Zipformer2Stack(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  pos_variant: str = "fourier",
                  full_dim_bypass: bool = False, dropout: float = 0.1,
-                 dynamics: bool = False):
+                 dynamics: bool = False, remat: Optional[str] = None):
         super().__init__()
         self.downsample_factor = downsample
         self.embed_dim = embed_dim
@@ -747,7 +833,8 @@ class Zipformer2Stack(nn.Module):
             Zipformer2EncoderLayer(embed_dim, ff_dim, num_heads,
                                    query_head_dim, value_head_dim,
                                    pos_head_dim, pos_dim, kernel_size,
-                                   causal, dtype, dropout, dynamics)
+                                   causal, dtype, dropout, dynamics,
+                                   remat)
             for _ in range(num_layers))
         self.downsample = SimpleDownsample(downsample)
         self.up = SimpleUpsample(downsample)
@@ -831,12 +918,15 @@ class Zipformer2Stack(nn.Module):
 class Zipformer2Config:
     """The fields the serving and training forwards read. The chunk and
     left-context lists are read by the task's chunk sampling
-    (tasks/rnnt.py:sample_chunk). `from_config` ignores the JAX config's
-    memory and layout switches (remat, remat_policy, scan_layers), which
-    change no value, and its kernel switches (use_flash_attn,
-    flash_min_batch, score_dtype): the port computes the weights with its
-    CUDA kernel on the card at every batch size, with f32 scores, as the
-    JAX `fused` path does."""
+    (tasks/rnnt.py:sample_chunk). `remat` / `remat_policy` turn on each
+    layer's activation recompute in training (`recomputed`; a policy
+    other than "full" or "dots" raises when `remat` is on, as JAX's
+    `_remat_kwargs` does). `from_config` ignores the JAX config's layout
+    switch scan_layers, which changes no value (convert.py reads either
+    layout), and its kernel switches (use_flash_attn, flash_min_batch,
+    score_dtype): the port computes the weights with its CUDA kernel on
+    the card at every batch size, with f32 scores, as the JAX `fused`
+    path does."""
     feature_dim: int = 80
     downsampling_factor: Tuple[int, ...] = (1, 2, 4, 8, 4, 2)
     num_encoder_layers: Tuple[int, ...] = (2, 2, 2, 2, 2, 2)
@@ -859,6 +949,8 @@ class Zipformer2Config:
     dynamics: bool = False
     pos_variant: str = "fourier"
     full_dim_bypass: bool = False
+    remat: bool = False
+    remat_policy: str = "full"
 
     @classmethod
     def from_config(cls, cfg: dict) -> "Zipformer2Config":
@@ -881,6 +973,9 @@ class Zipformer2(nn.Module):
     def __init__(self, config: Zipformer2Config):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                             f"{cfg.remat_policy!r}")
         dt = dtype_of(cfg.dtype)
         self.embed = Conv2dSubsampling(cfg.feature_dim, cfg.encoder_dim[0],
                                        dtype=dt, causal=cfg.causal)
@@ -902,7 +997,8 @@ class Zipformer2(nn.Module):
                 pos_variant=cfg.pos_variant,
                 full_dim_bypass=cfg.full_dim_bypass,
                 dropout=cfg.dropout,
-                dynamics=cfg.dynamics)
+                dynamics=cfg.dynamics,
+                remat=cfg.remat_policy if cfg.remat else None)
             for i in range(len(cfg.encoder_dim)))
         self.out_downsample = SimpleDownsample(
             cfg.output_downsampling_factor)

@@ -10,11 +10,13 @@ seeded init, then the merge of a converted pretrained encoder,
 `merge_pretrained_encoder`).
 `featurize(batch, generator, training)` draws every augmentation value
 from `generator` (on the batch's device) before it computes, in a fixed
-order (add_noise, mix_feats, SpecAugment, then dither inside the
-frontend), so one generator state gives one result. `draws` given
-explicitly replace the sampled ones; the tests feed the JAX package's
-draws there. The fbank of the speech batch and of the noise batch go
-through kernel B2 on the card. With the PCM frontend only add_noise
+order (add_noise, mix_feats, SpecAugment, then the dither noise, one
+standard normal value per frame sample of the speech batch, when the
+frontend's dither is > 0), so one generator state gives one result.
+`draws` given explicitly replace the sampled ones (a `draws` without
+"dither" still draws the dither noise from `generator`); the tests feed
+the JAX package's draws there. The fbank of the speech batch, dither
+included, and of the noise batch go through kernel B2 on the card. With the PCM frontend only add_noise
 applies (mix_feats and SpecAugment act on fbank features, as the JAX
 package's `isinstance(frontend, Fbank)` checks decide), and no kernel
 runs: the features are the dequantised PCM, CMVN applied as JAX applies
@@ -36,6 +38,7 @@ from ..data.dataset import AsrPipeline, DataConfig
 from ..data.frontend import Fbank, FrontendSetup, dequant_pcm, feat_lengths
 from ..data.tokenizer import TokenizerSetup
 from ..models.cmvn import GlobalCmvn
+from ..ops.fbank import dither_noise
 
 Batch = Dict[str, Any]
 
@@ -88,6 +91,11 @@ class Featurizer(nn.Module):
                 time_mask_max=int(sc.get("time_mask_max", 50)),
                 num_freq_masks=int(sc.get("num_freq_masks", 2)),
                 freq_mask_max=int(sc.get("freq_mask_max", 10)))
+        frames = cfg.num_frames(int(batch["pcm"].shape[-1]))
+        if cfg.dither > 0.0 and frames > 0:
+            draws["dither"] = dither_noise(
+                batch["pcm"].shape[0], frames, cfg.frame_length, generator,
+                batch["pcm"].device)
         return draws
 
     @torch.no_grad()
@@ -113,7 +121,8 @@ class Featurizer(nn.Module):
                                         batch["noise_length"],
                                         draws["add_noise"])
             feats, lens = self.frontend(pcm, pcm_lens,
-                                        dither_generator=generator)
+                                        dither_generator=generator,
+                                        noise=draws.get("dither"))
             if "mix_feats" in draws:
                 nfeats, nlens = self.frontend(dequant_pcm(batch["noise_pcm"]),
                                               batch["noise_length"])

@@ -69,12 +69,13 @@ ATTN_VARIANTS: Dict[str, Subst] = {
 FBANK_VARIANTS: Dict[str, Subst] = {
     "base": [],
     # no PCM read from global memory (the span is zero-filled)
-    "noload": [("  for (int i = threadIdx.x; i < nspan; i += THREADS) span[i] = x[i];",
-                "  for (int i = threadIdx.x; i < nspan; i += THREADS) "
-                "span[i] = N < 0 ? x[i] : 0.f;")],
-    # no FFT stages (the packed frame goes straight to the split)
-    "nofft": [("    for (int st = 0; st < 4; ++st) {",
-               "    for (int st = 0; st < (N < 0 ? 4 : 0); ++st) {")],
+    "noload": [("    span[i] = x[frame_index(first + i, N, snip)];",
+                "    span[i] = N < 0 ? x[frame_index(first + i, N, snip)] "
+                ": 0.f;")],
+    # no radix-4 FFT stages (the packed frame goes straight to the split
+    # at 512 points, which has no radix-2 stage)
+    "nofft": [("    for (int st = 0; st < R4_STAGES; ++st) {",
+               "    for (int st = 0; st < (N < 0 ? R4_STAGES : 0); ++st) {")],
     # no mel sums (every filter's sum is 0)
     "nomel": [("      for (int j = 0; j < len; ++j)",
                "      for (int j = 0; j < (N < 0 ? len : 0); ++j)")],

@@ -251,8 +251,9 @@ def test_offsets_stay_in_range_for_long_clips():
 
 
 def test_dither_plain_only(monkeypatch):
-    """dither > 0 adds Gaussian frame noise on the CPU; on a CUDA tensor
-    the wrapper raises rather than run the kernel without it."""
+    """dither > 0 adds Gaussian frame noise in training only; the wrapper
+    draws it once from the generator and a CUDA-routed call hands the
+    kernel the very noise the plain route adds, with its scale."""
     cfg = _featurize_config()
     cfg["dataset"]["feat_config"]["dither"] = 0.5
     feat = Featurizer(cfg)
@@ -266,6 +267,71 @@ def test_dither_plain_only(monkeypatch):
     fb = feat.frontend
     x = torch.zeros((1, 800))
     args = (x, fb.window, fb.dft_cos, fb.dft_sin, fb.banks, 3)
+    want_noise = tfb.dither_noise(1, 3, 400, torch.Generator().manual_seed(9),
+                                  "cpu")
+    plain = tfb.fbank(*args, dither=0.5,
+                      generator=torch.Generator().manual_seed(9))
+    assert torch.equal(plain, tfb.fbank_plain(*args, 400, 160, 0.97, True,
+                                              True, want_noise, 0.5))
+    seen = []
+
+    def recorded(*a):
+        seen.append(a)
+        return tfb.fbank_plain(*a)
+
     monkeypatch.setattr(tfb, "use_kernel", lambda device: True)
-    with pytest.raises(NotImplementedError, match="dither"):
-        tfb.fbank(*args, dither=0.5, generator=torch.Generator())
+    monkeypatch.setattr(tfb, "fbank_cuda", recorded)
+    routed = tfb.fbank(*args, dither=0.5,
+                       generator=torch.Generator().manual_seed(9))
+    (a,) = seen
+    assert torch.equal(a[11], want_noise) and a[12] == 0.5
+    assert torch.equal(routed, plain)
+
+
+def _dither_config():
+    cfg = _featurize_config()
+    cfg["dataset"]["feat_config"]["dither"] = 1.0 / 32768
+    return cfg
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_training_featurize_dither_given_jax_draws(seed):
+    """The whole training featurize with dither (one int16 step): JAX's
+    Featurizer with a key against the port given JAX's draws, its dither
+    noise `jax.random.normal(k_dither, frames.shape)` among them; and
+    `sample_augmentation` draws the noise last, so featurize with a
+    generator equals featurize with the draws from the same state."""
+    cfg = _dither_config()
+    jtask = JTaskBase(cfg)
+    batch = _noisy_batch(seed)
+    rng = jax.random.PRNGKey(seed + 200)
+    want, _ = jtask.featurize(
+        {k: jnp.asarray(v) for k, v in batch.items()}, rng, training=True)
+    k_noise, k_apply1, k_mix, k_apply2, k_spec, k_dither = \
+        jax.random.split(rng, 6)
+    fcfg = jtask.frontend.cfg
+    B, N = batch["pcm"].shape
+    nlens = j_feat_lengths(fcfg, jnp.asarray(batch["noise_length"]))
+    flens = j_feat_lengths(fcfg, jnp.asarray(batch["pcm_length"]))
+    draws = {
+        "add_noise": jax_noise_draws(
+            k_noise, k_apply1, 0.5, jnp.asarray(batch["noise_length"]),
+            10.0, 50.0),
+        "mix_feats": jax_mix_draws(k_mix, k_apply2, 0.5, nlens,
+                                   (10.0, 20.0)),
+        "spec_augment": jax_spec_draws(k_spec, flens, 80),
+        "dither": _t(jax.random.normal(
+            k_dither, (B, fcfg.num_frames(N), fcfg.frame_length)))}
+    feat = Featurizer(cfg)
+    tb = {k: _t(v) for k, v in batch.items()}
+    got, _ = feat.featurize(tb, training=True, draws=draws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FBANK_TOL)
+    undithered, _ = feat.featurize(tb, training=True, draws=dict(
+        draws, dither=torch.zeros_like(draws["dither"])))
+    assert not torch.equal(got, undithered)
+    a, _ = feat.featurize(tb, torch.Generator().manual_seed(4), True)
+    sampled = feat.sample_augmentation(tb, torch.Generator().manual_seed(4))
+    assert list(sampled) == ["add_noise", "mix_feats", "spec_augment",
+                             "dither"]
+    b, _ = feat.featurize(tb, training=True, draws=sampled)
+    assert torch.equal(a, b)

@@ -53,7 +53,7 @@ def _fft_route(pcm, fbank, T):
     fr = tfb.frame_signal(pcm, T, cfg.frame_length, cfg.frame_shift)
     fr = fr - fr.mean(dim=-1, keepdim=True)
     fr = fr - cfg.preemphasis * torch.cat([fr[..., :1], fr[..., :-1]], -1)
-    spec = torch.fft.rfft(fr * fbank.window, n=tfb.N_FFT)
+    spec = torch.fft.rfft(fr * fbank.window, n=cfg.padded_window_size)
     power = spec.real.square() + spec.imag.square()
     runs, w = tfb.mel_runs(fbank.banks.numpy())
     mel = torch.stack([(power[..., lo:lo + n] * torch.from_numpy(w[o:o + n]))
@@ -125,14 +125,19 @@ def test_builders_match():
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("sample_rate", [8000, 16000, 32000, 48000])
 @pytest.mark.parametrize("n_samples", [16000, 16077, 400, 561])
 @pytest.mark.parametrize("snip_edges", [True, False])
-def test_matches_jnp_and_numpy(rng, n_samples, snip_edges):
-    """Includes N % 160 != 0 (where JAX also takes `_fbank_impl`)."""
+def test_matches_jnp_and_numpy(rng, n_samples, snip_edges, sample_rate):
+    """Includes N % shift != 0 (where JAX also takes `_fbank_impl`), the
+    256-, 512-, 1024- and 2048-point DFTs of 25 ms frames at 8, 16, 32
+    and 48 kHz, and clips shorter than half a frame (400 samples at 48
+    kHz: centred framing reflects more than once)."""
     pcm = _pcm(rng, 2, n_samples)
     lens = np.array([n_samples, n_samples - 7], np.int32)
-    jfb = jf.Fbank(jf.FbankConfig(snip_edges=snip_edges), use_pallas=False)
-    tfb = tf.Fbank(tf.FbankConfig(snip_edges=snip_edges))
+    kw = dict(snip_edges=snip_edges, sample_rate=sample_rate)
+    jfb = jf.Fbank(jf.FbankConfig(**kw), use_pallas=False)
+    tfb = tf.Fbank(tf.FbankConfig(**kw))
     want, want_len = jfb(jnp.asarray(pcm), jnp.asarray(lens))
     got, got_len = tfb(torch.from_numpy(pcm), torch.from_numpy(lens))
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -197,10 +202,10 @@ def test_global_cmvn(rng, tmp_path):
 
 def test_fft_operands_made_once_and_checked():
     """The FFT kernel's operands are made once per banks tensor, and DFT
-    matrices of another size than the kernel's 512 points are refused."""
+    matrices of a size the kernel does not compute are refused."""
     fbank = tf.Fbank()
     ops = tfb.fft_operands(fbank.dft_cos, fbank.dft_sin, fbank.banks)
-    assert ops[0].shape == (tfb.N_FFT, 2) and ops[1].shape == (80, 3)
+    assert ops[0].shape == (512, 2) and ops[1].shape == (80, 3)
     again = tfb.fft_operands(fbank.dft_cos, fbank.dft_sin, fbank.banks)
     assert all(a is b for a, b in zip(ops, again))
     banks = fbank.banks.clone()
@@ -209,10 +214,67 @@ def test_fft_operands_made_once_and_checked():
     assert key in tfb._OPERANDS
     del banks                       # the entry goes with its tensor
     assert key not in tfb._OPERANDS
-    other = tf.Fbank(tf.FbankConfig(sample_rate=8000))   # 256-point DFT
-    with pytest.raises(ValueError):
-        tfb.fft_operands(other.dft_cos, other.dft_sin, fbank.banks)
+    for n_fft in (100, 4096):
+        cos, sin = (torch.from_numpy(m) for m in tfb.dft_matrices(64, n_fft))
+        with pytest.raises(ValueError, match="128- to 2048-point"):
+            tfb.fft_operands(cos, sin, torch.ones((4, n_fft // 2 + 1)))
+    # the matrices of another frame length than their rows say
+    cos, sin = (torch.from_numpy(m) for m in tfb.dft_matrices(400, 512))
+    with pytest.raises(ValueError, match="another transform"):
+        tfb.fft_operands(cos, sin * 2, fbank.banks)
+
+
+@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024, 2048])
+def test_fft_operands_every_size(n_fft):
+    """Twiddles exp(-2πik/n) within 1e-7 for every FFT size the kernel
+    takes, from DFT matrices of a frame shorter than n."""
+    flen = 3 * n_fft // 4 + 1
+    cos, sin = (torch.from_numpy(m) for m in tfb.dft_matrices(flen, n_fft))
+    banks = tf.make_mel_banks(tf.FbankConfig(
+        sample_rate=n_fft * 25, num_mel_bins=23))
+    assert banks.shape[1] == n_fft // 2 + 1
+    tw, runs, _ = tfb.fft_operands(cos, sin, torch.from_numpy(banks))
+    assert tfb.fft_size(cos) == n_fft and tw.shape == (n_fft, 2)
+    assert runs.shape == (23, 3)
     np.testing.assert_allclose(
-        ops[0].numpy()[:, 0] + 1j * ops[0].numpy()[:, 1],
-        np.exp(-2j * np.pi * np.arange(tfb.N_FFT) / tfb.N_FFT),
-        rtol=0, atol=1e-7)
+        tw.numpy()[:, 0] + 1j * tw.numpy()[:, 1],
+        np.exp(-2j * np.pi * np.arange(n_fft) / n_fft), rtol=0, atol=1e-7)
+
+
+# dither: the port's plain route given JAX's noise, rtol 1e-5; the atol of
+# JNP_TOL stays for the few narrow mel bands (8 kHz: a filter over one or
+# two bins) whose f32 sums the two routes take in another order (2.5e-4
+# at worst on these inputs)
+DITHER_TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("snip_edges", [True, False])
+@pytest.mark.parametrize("sample_rate", [8000, 16000])
+def test_dither_matches_jax_given_its_noise(rng, snip_edges, sample_rate):
+    """JAX's `_fbank_impl` with a dither key against the port's wrapper
+    given `jax.random.normal(key, frames.shape)`; the same noise drawn
+    by a generator gives the same features as that noise handed in."""
+    import jax
+    N = sample_rate + 77
+    pcm = _pcm(rng, 3, N)
+    kw = dict(snip_edges=snip_edges, sample_rate=sample_rate, dither=0.5)
+    jfb = jf.Fbank(jf.FbankConfig(**kw), use_pallas=False)
+    t = tf.Fbank(tf.FbankConfig(**kw))
+    cfg = t.cfg
+    T = cfg.num_frames(N)
+    key = jax.random.PRNGKey(sample_rate + snip_edges)
+    want = jf._fbank_impl(jfb.cfg, jnp.asarray(pcm), T, jfb._window,
+                          jfb._banks, jfb._dft_cos, jfb._dft_sin, key)
+    noise = torch.from_numpy(np.array(
+        jax.random.normal(key, (3, T, cfg.frame_length))))
+    got, _ = t(torch.from_numpy(pcm), torch.full((3,), N), noise=noise)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DITHER_TOL)
+    clean, _ = t(torch.from_numpy(pcm), torch.full((3,), N))
+    assert float((got - clean).abs().max()) > 1e-3
+    g = torch.Generator().manual_seed(5)
+    drawn, _ = t(torch.from_numpy(pcm), torch.full((3,), N),
+                 dither_generator=g)
+    given = tfb.dither_noise(3, T, cfg.frame_length,
+                             torch.Generator().manual_seed(5), "cpu")
+    again, _ = t(torch.from_numpy(pcm), torch.full((3,), N), noise=given)
+    assert torch.equal(drawn, again)

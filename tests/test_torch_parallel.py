@@ -21,7 +21,8 @@ one-process side of the checks while that compile goes on.
 - (b) FSDP: the same run with `trainer.fsdp`, against the same JAX step
   (FSDP shards the JAX tree's layout, not its arithmetic: one compile of
   the step serves both cases); its checkpoint, written by 2 ranks, loads
-  into a 1-process Trainer and equals the DDP run's.
+  into a 1-process Trainer and equals the DDP run's. The FSDP run again
+  with the encoder's `remat: full` equals it bit for bit.
 - (c) global denominators: the NNLM task's masked KL (AdamW, clipping at
   5.0) over 2 ranks whose token counts differ against JAX's mesh step:
   loss and acc rtol 1e-5, grad_norm 1e-4, parameters 1e-5 relative.
@@ -102,9 +103,12 @@ def _write_spec(corpus, root):
     packages, the flagship's seeded weights as a flat flax tree; returns
     (spec, the flagship model, the inference model)."""
     spec = {"seed": SEED, "steps": STEPS, "out": str(root)}
-    for name, kw in (("ddp", {}), ("fsdp", {"fsdp": True})):
+    for name, kw in (("ddp", {}), ("fsdp", {"fsdp": True}),
+                     ("fsdp_remat", {"fsdp": True})):
         spec[f"{name}_dir"] = str(root / name)
         spec[name] = _flagship(corpus, spec[f"{name}_dir"], **kw)
+    spec["fsdp_remat"]["encoder"]["config"].update(remat=True,
+                                                   remat_policy="full")
     spec["nnlm_dir"] = str(root / "nnlm")
     spec["nnlm"] = _mesh_config(lm_config(corpus, spec["nnlm_dir"]))
     train_yaml = root / "train.yaml"
@@ -162,7 +166,7 @@ def _one_process(spec, root):
     evaluation of each (the global batches of 2 ranks), the FSDP one
     loaded into a Trainer, the step generators."""
     out = {}
-    for mode in ("ddp", "fsdp"):
+    for mode in ("ddp", "fsdp", "fsdp_remat"):
         cfg = _mesh_config(spec[mode])
         cfg["trainer"]["mesh"] = {"data": 1, "model": 1}
         trainer = Trainer(PrunedRnntTask(cfg), cfg, str(root / f"{mode}_1"),
@@ -251,11 +255,13 @@ def _step_state(workdir):
         os.path.join(workdir, "checkpoints")).restore(STEPS)
 
 
-@pytest.mark.parametrize("mode", ["ddp", "fsdp"])
+@pytest.mark.parametrize("mode", ["ddp", "fsdp", "fsdp_remat"])
 def test_two_ranks_match_jax_mesh_step(run, mode):
     """(a), (b): losses, grad_norm and step-3 parameters of 2 ranks against
-    JAX's data=2 mesh step; the evaluation sharded over the ranks equals
-    one process's evaluation of the checkpoint on the same batches."""
+    JAX's data=2 mesh step (FSDP also with `remat: full`, each layer's
+    recompute inside its FSDP unit); the evaluation sharded over the
+    ranks equals one process's evaluation of the checkpoint on the same
+    batches."""
     spec, (want_steps, want_params) = run["spec"], run["want"]["flagship"]
     _check_steps(spec[f"{mode}_dir"], want_steps, LOSS_KEYS)
     _check_params(_step_state(spec[f"{mode}_dir"])["model"], want_params,
@@ -287,6 +293,24 @@ def test_fsdp_checkpoint_loads_into_one_process(run):
     for name in ("delta", "exp_avg_sq"):
         for a, b in zip(fsdp["optimizer"][name], ddp["optimizer"][name]):
             assert a.shape == b.shape
+
+
+def test_fsdp_remat_equals_fsdp(run):
+    """(b): the FSDP run with `remat: full` logs the same losses and
+    grad_norm and ends with the same weights and ScaledAdam state as the
+    FSDP run without it, bit for bit."""
+    spec = run["spec"]
+    keys = ("step", "lr", "grad_norm") + LOSS_KEYS
+    got, want = ([{k: r[k] for k in keys} for r in _lines(spec[f"{m}_dir"])]
+                 for m in ("fsdp_remat", "fsdp"))
+    assert len(got) == STEPS and got == want
+    remat, fsdp = (_step_state(spec[f"{m}_dir"])
+                   for m in ("fsdp_remat", "fsdp"))
+    assert all(torch.equal(remat["model"][k], v)
+               for k, v in fsdp["model"].items())
+    for name in ("delta", "exp_avg_sq", "param_rms"):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(remat["optimizer"][name], fsdp["optimizer"][name]))
 
 
 def test_nnlm_global_denominators(run):

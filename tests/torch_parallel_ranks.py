@@ -5,7 +5,8 @@ port in one torchrun job of 2 gloo processes on the CPU.
         tests/torch_parallel_ranks.py <spec.json>
 
 `spec.json` (written by the test) names the configs and directories.
-Each rank trains, in turn, the DDP run, the FSDP run and the NNLM run
+Each rank trains, in turn, the DDP run, the FSDP run, the FSDP run with
+the encoder's activation recompute (`remat: full`) and the NNLM run
 (Trainer.fit; rank 0 writes metrics.jsonl and checkpoints), computes the
 balancer's and whitening's gradients on its half of a seeded batch,
 decodes its slice of the test set (inference.main; rank 0 writes the
@@ -90,6 +91,9 @@ def main(spec_path: str) -> None:
     result["fsdp_sharded"] = sum(parallel.is_sharded(p)
                                  for p in fsdp.model.parameters())
     result["fsdp_eval"] = fsdp.last_eval
+    remat = train(spec["fsdp_remat"], spec["fsdp_remat_dir"], spec["seed"],
+                  spec["steps"])
+    result["fsdp_remat_eval"] = remat.last_eval
     lm = train(spec["nnlm"], spec["nnlm_dir"], spec["seed"], spec["steps"])
     pipe = lm.task.make_train_pipeline(r, parallel.world_size(),
                                        seed=spec["seed"])
