@@ -1,0 +1,8 @@
+"""The flagship's optimizer and learning-rate schedule: ScaledAdam under
+Eden."""
+
+from .scaled_adam import ScaledAdam
+from .schedules import EdenSchedule
+from .setup import OptimSetup
+
+__all__ = ["EdenSchedule", "OptimSetup", "ScaledAdam"]
