@@ -20,7 +20,8 @@ autograd.Function (`_ZipWeights`, the port of flash_attn.py:172-211)
 saves the OUTPUT weights and its backward (`attn_weights_backward`, plain
 torch on the CPU and the card alike) is the softmax vjp off them, with
 the ±100 clip taken as identity and no gradient for the mask, as JAX's
-`_bwd` does.
+`_bwd` does. That backward is the span "attn_weights_backward"
+(utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.tracing import span
 from .build import (CudaKernel, on_device, ptr, ready, stream_handle,
                     use_kernel)
 
@@ -161,7 +163,9 @@ class _ZipWeights(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dw):
         q, k, qp, p, w = ctx.saved_tensors
-        return (*attn_weights_backward(q, k, qp, p, w, dw), None, None)
+        with span("attn_weights_backward"):
+            grads = attn_weights_backward(q, k, qp, p, w, dw)
+        return (*grads, None, None)
 
 
 def zip_weights(q: torch.Tensor, k: torch.Tensor, qp: torch.Tensor,

@@ -24,9 +24,8 @@ scaled as the ranks' average expects. As in the JAX package (and unlike icefall,
 which applies them at random with probability `prob`), the extra gradient
 is applied on every step scaled by `prob`. The whitening metric is taken
 over every row of the (B·T, C) features, pads included, as JAX takes it.
-Both backwards are `torch.profiler.record_function` spans,
-"regularizers_backward", which a profiler reads (the extra backward the
-training dynamics cost) and which cost nothing without one.
+Both backwards are the span "regularizers_backward" (utils/tracing.py),
+which a profiler reads: the extra backward the training dynamics cost.
 """
 
 from __future__ import annotations
@@ -35,9 +34,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..parallel import all_reduce_sum, world_size
+from ..utils.tracing import span
 
 
 class PiecewiseLinear:
@@ -136,7 +135,7 @@ class _Balancer(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         min_mean, max_mean, min_rms, max_rms, grad_scale = ctx.limits
-        with record_function("regularizers_backward"):
+        with span("regularizers_backward"):
             loss_grad = _balancer_grad(x, min_mean, max_mean, min_rms,
                                        max_rms)
             axes = tuple(range(x.ndim - 1))
@@ -200,7 +199,7 @@ class _Whiten(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         whitening_limit, grad_scale = ctx.limits
-        with record_function("regularizers_backward"):
+        with span("regularizers_backward"):
             metric, pgrad = _whitening_metric_grad(x)
             g32 = g.float()
             g_norm = torch.sqrt(all_reduce_sum(torch.sum(torch.square(g32))))

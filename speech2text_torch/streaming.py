@@ -34,11 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .decoding import RnntGreedyDecoding, _map_state, ids_to_texts
 from .models.zipformer import Zipformer2
 from .train.loop import resolve_device
+from .utils import tracing
 
 
 class StreamingAsrSession:
@@ -117,7 +117,7 @@ class StreamingAsrSession:
     def _chunk(self, pcm: torch.Tensor, state: Dict[str, Any],
                prime: bool, spans: bool = True) -> Dict[str, Any]:
         enc = self.model.encoder
-        span = record_function if spans else (
+        span = tracing.span if spans else (
             lambda name: contextlib.nullcontext())
         if not prime:
             pcm = torch.cat([state["pcm_tail"], pcm], dim=1)

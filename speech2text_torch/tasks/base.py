@@ -30,7 +30,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..config import from_dict
 from ..data import augment
@@ -39,6 +38,7 @@ from ..data.frontend import Fbank, FrontendSetup, dequant_pcm, feat_lengths
 from ..data.tokenizer import TokenizerSetup
 from ..models.cmvn import GlobalCmvn
 from ..ops.fbank import dither_noise
+from ..utils.tracing import span
 
 Batch = Dict[str, Any]
 
@@ -107,7 +107,7 @@ class Featurizer(nn.Module):
         """pcm batch (tensors on one device) → (feats (B, T, D),
         feat_lens); augmented only when training with a generator or
         draws."""
-        with record_function("featurize"):
+        with span("featurize"):
             pcm = dequant_pcm(batch["pcm"])
             pcm_lens = batch["pcm_length"]
             if not training or (generator is None and draws is None):

@@ -30,7 +30,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..config import from_dict
 from ..convert import to_flax
@@ -44,6 +43,7 @@ from ..models.rnn_lm import RnnLm, RnnLmConfig
 from ..models.zipformer import Zipformer2
 from ..quant import Int8RnntBeamDecoding, Int8RnntGreedyDecoding
 from ..train.checkpoint import average_checkpoints
+from ..utils.tracing import span
 from .base import AsrTaskBase, Batch
 
 
@@ -86,14 +86,14 @@ class RnntModel(nn.Module):
         from `generator`, and a Zipformer2's training dynamics at the
         global `step`. A Conformer takes no chunk and no step."""
         kw = {"step": step} if isinstance(self.encoder, Zipformer2) else {}
-        with record_function("encoder"):
+        with span("encoder"):
             enc, enc_lens = self.encoder(feats, feat_lens, chunk_size,
                                          left_context_chunks,
                                          training=training,
                                          generator=generator, **kw)
             dec, dec_lens = self.decoder(enc, enc_lens, training=training,
                                          generator=generator)
-        with record_function("joiner_losses"):
+        with span("joiner_losses"):
             pred = self.predictor(labels)
             logits, ranges, simple_loss = self.joiner(enc, enc_lens, pred,
                                                       label_lens, labels)
@@ -160,7 +160,7 @@ class PrunedRnntLossFn:
                   + self.pruned_scale * pruned,
                   "simple_loss": simple, "pruned_loss": pruned}
         if self.enable_ctc:
-            with record_function("ctc_loss"):
+            with span("ctc_loss"):
                 ctc = self.ctc_loss({"logits": out["dec"],
                                      "logits_length": out["dec_lens"],
                                      "label": labels,
@@ -180,7 +180,7 @@ class RnntLossFn:
 
     def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
                  label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with record_function("rnnt_loss"):
+        with span("rnnt_loss"):
             return {"loss": self.loss({"logits": out["logits"],
                                        "logits_length": out["enc_lens"],
                                        "label": labels,
@@ -204,7 +204,7 @@ class HybridRnntLossFn:
     def __call__(self, out: Dict[str, torch.Tensor], labels: torch.Tensor,
                  label_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
         rnnt = self.rnnt_loss(out, labels, label_lens)["loss"]
-        with record_function("ctc_loss"):
+        with span("ctc_loss"):
             ctc = self.ctc_loss({"logits": out["dec"],
                                  "logits_length": out["dec_lens"],
                                  "label": labels,
@@ -244,7 +244,7 @@ def train_losses(model: RnntModel, loss_fn, feats: torch.Tensor,
     out = model(feats, feat_lens, labels, label_lens, training=True,
                 generator=generator, chunk_size=cs, left_context_chunks=lc,
                 step=step)
-    with record_function("joiner_losses"):
+    with span("joiner_losses"):
         losses = loss_fn(out, labels, label_lens)
     losses["frames"] = out["enc_lens"].sum()
     return losses

@@ -50,9 +50,9 @@ ctc_loss for the pruned task; acc and mask_rate for SSL), grad_norm: the
 norm before clipping) and the mean data wait of the interval
 (data_wait_ms) goes to `metrics.jsonl` and TensorBoard.
 Batches arrive in pinned host memory (on `cuda`) and are copied without
-blocking. `next(train_iter)` is a `torch.profiler.record_function("data")`
-span, and `history` keeps per step the host clock at its end, its data
-wait and the seconds of an evaluation after it.
+blocking. `next(train_iter)` is the span "data" (utils/tracing.py),
+and `history` keeps per step the host clock at its end, its data wait
+and the seconds of an evaluation after it.
 
 Multi-GPU (parallel/mesh.py): launched by torchrun, one process per
 GPU, the Trainer trains data-parallel over the ranks, as the JAX loop
@@ -90,13 +90,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import parallel
 from ..decoding import reference_decoder
 from ..metrics import AsrMetric
 from ..optim import MultiSteps, OptimSetup
 from ..utils.logging import get_logger
+from ..utils.tracing import span
 from .checkpoint import CheckpointManager
 from .step import clip_value, take_step
 from .tb_writer import TensorBoardWriter
@@ -357,7 +357,7 @@ class Trainer:
         try:
             while step < max_steps:
                 t0 = time.perf_counter()
-                with record_function("data"):
+                with span("data"):
                     batch = next(train_iter)
                 wait = time.perf_counter() - t0
                 waits.append(wait)

@@ -29,14 +29,18 @@ It runs on `cuda` unless the caller passes `device="cpu"`. Dropout and
 feature masks come from a generator on the device, and the chunk choice
 from a CPU generator, both seeded with `seed`.
 
-The step's phases are `torch.profiler.record_function` spans, which a
-profiler reads and which cost nothing without one: "featurize",
-"encoder" (with the decoder head) and "joiner_losses" (predictor, joiner
-with the simple loss and prune ranges, pruned loss and, inside it,
-"ctc_loss"; "rnnt_loss" for the full-lattice loss; the two model spans
-are RnntModel.forward's), "backward" (inside it, with the training
-dynamics, "regularizers_backward", the balancers' and whitening's extra
-gradients) and "optimizer" (with the gradient norm and the clipping).
+The step's phases are spans (utils/tracing.py: a profiler reads them,
+and the recorder, when on, keeps them on the profiler's clock):
+"featurize", "encoder" (with the decoder head), "joiner_losses" (twice:
+predictor and joiner, in RnntModel.forward, with "simple_loss" and
+"prune_ranges" inside; then the task's losses, with "pruned_loss" and
+"ctc_loss" inside, or "rnnt_loss" for the full-lattice loss),
+"backward" (inside it "attn_weights_backward", B1's backward, once per
+attention layer; with the training dynamics "regularizers_backward", the
+balancers' and whitening's extra gradients; with the recorder on,
+"pruned_loss_backward", the pruned lattice's backward; on the card the
+three run on autograd's device thread) and "optimizer" (with the
+gradient norm and the clipping).
 """
 
 from __future__ import annotations
@@ -46,13 +50,13 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import load_config
 from ..optim import OptimSetup, clip_by_global_norm_
 from ..parallel import grad_norm as global_grad_norm
 from ..tasks.base import Featurizer
 from ..tasks.rnnt import RnntModel, loss_fn_of, sample_chunk, train_losses
+from ..utils.tracing import span
 
 
 def clip_value(config: Dict[str, Any]) -> Optional[float]:
@@ -81,9 +85,9 @@ def take_step(model: torch.nn.Module,
     gradient's."""
     optimizer.zero_grad()
     losses = losses_fn()
-    with record_function("backward"):
+    with span("backward"):
         losses["loss"].backward()
-    with record_function("optimizer"):
+    with span("optimizer"):
         with torch.no_grad():
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             grad_norm = global_grad_norm(grads)
