@@ -9,7 +9,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failed check raises and the script exits non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      no CUDA device → exit 1 with no result;
-  2. build both CUDA kernels from speech2text_torch/csrc (nvcc, sm_90a);
+  2. build the three CUDA kernels from speech2text_torch/csrc (nvcc,
+     sm_90a);
   3. attention-weights kernel vs its plain version at every flagship stack
      shape for B=16 and 10 s, bf16 and f32, mask None / ragged pad / chunk,
      and at a 30 s utterance;
@@ -218,6 +219,21 @@ Phases (any failed check raises and the script exits non-zero):
      and gradients bitwise equal to off's, peak memory ("full" below
      off's, "dots" no higher), B1 launches per step (2x the layers under
      "full", 1x under "dots"), ms per step;
+ 21. (kernel B3, run right after phase 9, whose timed steps take 4 B3
+     launches each (the simple and the pruned loss, forward and backward)
+     and walk 0 diagonals of the plain loops) the transducer lattice
+     kernels against autograd through the plain loop on the card at the
+     benchmark cell's eight bucket shapes (arcs at a fresh model's scale,
+     -log 4336 plus noise; lengths with t_len 1 and T, u_len 0 and U):
+     totals within LATTICE_TOTAL_RTOL, occupancies (g = 1) and gradients
+     (g with a 0) within LATTICE_TOL, and within LATTICE_TOL of the plain
+     walk back, 0 without a path or g, no NaN; the prune ranges from the
+     kernel's occupancies against the plain ones (equal share, every
+     difference); at the 388-utterance bucket also a pruned band through
+     rnnt_loss_pruned with an infeasible utterance (loss and gradient 0),
+     t_len 0, and B = 1; U+1 > 1024 (two cells a thread); each kernel's
+     device time at every bucket shape beside its bytes bound and its
+     diagonals, and the plain loop's forward and backward;
 timings beside each kernel's bound (phases 3-4, 7). A kernel's time is device
 time: the median duration of the kernels of its name in a torch.profiler
 trace of 30 wrapper calls (speech2text_torch/tools/timing.py); the
@@ -1086,6 +1102,7 @@ def phase_train_bf16(card, report):
 
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.ops import rnnt as rn
     from speech2text_torch.train.step import TrainStep
     ts = TrainStep.from_config(TRAIN_CFG, device="cuda", seed=SEED)
     enc_cfg = ts.model.encoder.config
@@ -1100,23 +1117,30 @@ def phase_train_bf16(card, report):
     before = [p.detach().clone() for p in params]
     torch.cuda.reset_peak_memory_stats()
 
-    aw.KERNEL.launches = fb.KERNEL.launches = 0
+    aw.KERNEL.launches = fb.KERNEL.launches = rn.KERNEL.launches = 0
     per_step, times, losses = [], [], []
-    for _ in range(TRAIN_STEPS):
-        a0, f0 = aw.KERNEL.launches, fb.KERNEL.launches
-        t0 = time.perf_counter()
-        out = ts.step(*batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append((aw.KERNEL.launches - a0, fb.KERNEL.launches - f0))
-        losses.append({k: float(v) for k, v in out.items()})
+    with PlainLatticeTrips() as trips:
+        for _ in range(TRAIN_STEPS):
+            k0 = (aw.KERNEL.launches, fb.KERNEL.launches, rn.KERNEL.launches)
+            t0 = time.perf_counter()
+            out = ts.step(*batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(tuple(
+                k.launches - n for k, n in zip((aw.KERNEL, fb.KERNEL,
+                                                rn.KERNEL), k0)))
+            losses.append({k: float(v) for k, v in out.items()})
     launches = {"attn_weights": aw.KERNEL.launches,
-                "fbank": fb.KERNEL.launches}
+                "fbank": fb.KERNEL.launches, "lattice": rn.KERNEL.launches,
+                "plain_lattice_trips": trips.trips}
     peak = torch.cuda.max_memory_allocated()
-    expect = (sum(enc_cfg.num_encoder_layers), 1)
+    # B3: the simple loss's forward and backward, the pruned loss's
+    expect = (sum(enc_cfg.num_encoder_layers), 1, 4)
     assert all(r == expect for r in per_step), \
-        f"launches per train step (attn_weights, fbank): {per_step}, " \
-        f"expected {expect}"
+        f"launches per train step (attn_weights, fbank, lattice): " \
+        f"{per_step}, expected {expect}"
+    assert trips.trips == 0, \
+        f"{trips.trips} plain lattice diagonals in the timed steps"
     assert all(math.isfinite(v) for r in losses for v in r.values()), \
         f"non-finite train losses {losses}"
     changed = sum(not torch.equal(b, p) for b, p in zip(before, params))
@@ -6312,6 +6336,279 @@ def phase_options(card, report, tmp, trained):
     return {"fbank": fbank, "attn_weights": attn}
 
 
+
+# ------------------------------------------------------------ phase 21: B3
+# (B, T, U) of the benchmark cell's eight buckets (s2t_bench's aishell1_train
+# traffic under the flagship YAML: batch, encoder frames of the padded PCM,
+# label columns), with their shares of an epoch's steps
+LATTICE_SHAPES = ((512, 98, 24), (512, 148, 32), (388, 173, 40),
+                  (306, 223, 48), (252, 273, 56), (215, 323, 72),
+                  (187, 373, 80), (165, 423, 88))
+LATTICE_SHARES = (34, 103, 86, 40, 14, 5, 2, 1)
+LATTICE_WIDE = (2, 40, 1500)      # U+1 > 1024: two cells a thread
+LATTICE_V = 4336                  # arcs near -log V, as a fresh model's
+LATTICE_BAND_V = 64               # the pruned band's joiner width
+LATTICE_PRUNE = 5                 # the flagship's prune range
+LATTICE_TOTAL_RTOL = 1e-5
+LATTICE_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+class PlainLatticeTrips:
+    """While entered: the anti-diagonals the plain lattice loops walk
+    (ops/rnnt.py's lattice_forward_plain, lattice_backward_plain)."""
+
+    def __enter__(self):
+        from speech2text_torch.ops import rnnt as rn
+        self.rn = rn
+        self.orig = (rn.lattice_forward_plain, rn.lattice_backward_plain)
+        self.trips = 0
+
+        def counted(fn, extra):
+            def wrapped(px, *args):
+                self.trips += px.shape[1] + px.shape[2] + extra
+                return fn(px, *args)
+            return wrapped
+
+        rn.lattice_forward_plain = counted(self.orig[0], -1)
+        rn.lattice_backward_plain = counted(self.orig[1], 0)
+        return self
+
+    def __exit__(self, *exc):
+        self.rn.lattice_forward_plain, self.rn.lattice_backward_plain = \
+            self.orig
+
+
+def lattice_lens(rng, B, T, U):
+    """Lengths with the edges first, (T, U), (1, 0), (T, 0), (1, U), then
+    t in [T/2, T] and u in [0, U] at random."""
+    t = rng.integers(max(1, T // 2), T + 1, B)
+    u = rng.integers(0, U + 1, B)
+    for i, (ti, ui) in enumerate(((T, U), (1, 0), (T, 0), (1, U))[:B]):
+        t[i], u[i] = ti, ui
+    return (torch.from_numpy(t.astype(np.int32)).cuda(),
+            torch.from_numpy(u.astype(np.int32)).cuda())
+
+
+def lattice_arcs(rng, B, T, U):
+    """Emit and blank log-probs at a fresh model's scale: -log V plus
+    noise of 0.5 (totals near -8.4 (T+U))."""
+    base = -math.log(LATTICE_V)
+    return tuple(torch.from_numpy(
+        (base + 0.5 * rng.standard_normal(shape)).astype(np.float32)).cuda()
+        for shape in ((B, T, U), (B, T, U + 1)))
+
+
+def lattice_check(label, px, py, tl, ul, g):
+    """Kernel B3's totals and arc gradients for the incoming gradient g,
+    against autograd through the plain loop on the card (totals within
+    LATTICE_TOTAL_RTOL, gradients within LATTICE_TOL where a path exists)
+    and against the plain walk back (LATTICE_TOL everywhere); exact 0
+    where there is no path or g = 0; no NaN. Returns the record, the
+    kernel's gradients and autograd's."""
+    from speech2text_torch.ops import rnnt as rn
+    total, alpha = rn.lattice_forward_cuda(px, py, tl, ul)
+    gpx, gpy = rn.lattice_backward_cuda(px, py, tl, ul, alpha, total, g)
+    a, b = px.clone().requires_grad_(), py.clone().requires_grad_()
+    want, plain_alpha = rn.lattice_forward_plain(a, b, tl, ul)
+    (want * g).sum().backward()
+    want = want.detach()
+    walk = rn.lattice_backward_plain(px, py, tl, ul, plain_alpha.detach(),
+                                     want, g)
+    torch.cuda.synchronize()
+    nan = sum(int(x.isnan().sum()) for x in (total, gpx, gpy))
+    assert nan == 0, f"{label}: {nan} NaN from kernel B3"
+    path = want > rn.NEG_INF / 2
+    assert bool((total[~path] <= rn.NEG_INF / 2).all()), \
+        f"{label}: a total without a path above NEG_INF / 2"
+    rec = {"label": label, "shape": list(px.shape),
+           "no_path": int((~path).sum()), "g_zero": int((g == 0).sum()),
+           "nan": nan,
+           "total_err": check_close(f"{label} total", total[path],
+                                    want[path], LATTICE_TOTAL_RTOL, 0.0)}
+    live = path & (g != 0)
+    for name, got, oracle, plain in (("px", gpx, a.grad, walk[0]),
+                                     ("py", gpy, b.grad, walk[1])):
+        rec[f"grad_{name}_err"] = check_close(
+            f"{label} grad_{name}", got[path], oracle[path], **LATTICE_TOL)
+        rec[f"grad_{name}_walk_err"] = check_close(
+            f"{label} grad_{name} against the walk", got, plain,
+            **LATTICE_TOL)
+        assert bool((got[~live] == 0).all()), \
+            f"{label}: grad_{name} not 0 without a path or g"
+    return rec, (gpx, gpy), (a.grad, b.grad)
+
+
+def lattice_ranges(occ, plain_occ, tl, ul):
+    """Prune ranges from kernel B3's occupancies against those from
+    autograd's: the equal share and every difference (b, t, kernel,
+    plain)."""
+    from speech2text_torch.ops import pruned_rnnt as tp
+    rk = tp.get_rnnt_prune_ranges(*occ, tl, ul, LATTICE_PRUNE)
+    rp = tp.get_rnnt_prune_ranges(*plain_occ, tl, ul, LATTICE_PRUNE)
+    diff = [[b, t, int(rk[b, t]), int(rp[b, t])]
+            for b, t in (rk != rp).nonzero().tolist()]
+    return {"equal_share": float((rk == rp).float().mean()),
+            "differences": diff}
+
+
+def lattice_pruned(rng, occ, tl, ul, g):
+    """rnnt_loss_pruned on the card through kernel B3 against the same
+    loss through autograd over the plain loop, with utterance 5 made
+    infeasible (4 frames, U labels: more than the band's R-1 emits a
+    frame): the per-utterance losses and the logits' gradient, that
+    utterance's loss and gradient 0, no NaN; and the band's arcs
+    (NEG_INF off the windows) held by lattice_check."""
+    from unittest import mock
+
+    from speech2text_torch.ops import pruned_rnnt as tp
+    from speech2text_torch.ops import rnnt as rn
+    B, T, U = occ[0].shape
+    R, V = LATTICE_PRUNE, LATTICE_BAND_V
+    tl, ul = tl.clone(), ul.clone()
+    tl[5], ul[5] = 4, U
+    ranges = tp.get_rnnt_prune_ranges(*occ, tl, ul, R)
+    logits = torch.from_numpy(rng.standard_normal((B, T, R, V))
+                              .astype(np.float32)).cuda()
+    sym = torch.from_numpy(rng.integers(1, V, (B, U))
+                           .astype(np.int32)).cuda()
+    seen = []
+
+    def spy(px, py, t_lens, u_lens):
+        seen.append((px.detach(), py.detach()))
+        return rn.lattice_forward(px, py, t_lens, u_lens)
+
+    def plain(px, py, t_lens, u_lens):
+        return rn.lattice_forward_plain(px, py, t_lens, u_lens)[0]
+
+    out = []
+    for fn in (spy, plain):
+        x = logits.clone().requires_grad_()
+        with mock.patch.object(tp, "lattice_forward", fn):
+            nll = tp.rnnt_loss_pruned(x, sym, ranges, tl, ul,
+                                      reduction="none")
+        nll.sum().backward()
+        out.append((nll.detach(), x.grad))
+    (nll, grad), (want, want_grad) = out
+    torch.cuda.synchronize()
+    assert not bool(nll.isnan().any() or grad.isnan().any()), \
+        "NaN in the pruned loss through kernel B3"
+    assert float(nll[5]) == 0.0 and bool((grad[5] == 0).all()), \
+        "the infeasible pruned utterance has a loss or a gradient"
+    rec = {"nll_err": check_close("pruned nll", nll, want,
+                                  LATTICE_TOTAL_RTOL, 0.0),
+           "logits_grad_err": check_close("pruned logits grad", grad,
+                                          want_grad, **LATTICE_TOL),
+           "infeasible_nll": float(nll[5])}
+    band, _, _ = lattice_check("pruned band", *seen[0], tl, ul, g)
+    return rec, band
+
+
+def lattice_timing(px, py, tl, ul):
+    """Device ms of each B3 kernel at one shape (median of 30 launches),
+    with the bytes bound of the pair and its chain of diagonals."""
+    from speech2text_torch.ops import rnnt as rn
+    from speech2text_torch.tools.timing import device_ms
+    B, T, U = px.shape
+    total, alpha = rn.lattice_forward_cuda(px, py, tl, ul)
+    g = torch.ones_like(total)
+    fwd = device_ms(lambda: rn.lattice_forward_cuda(px, py, tl, ul),
+                    "lattice_alpha_kernel")
+    bwd = device_ms(lambda: rn.lattice_backward_cuda(px, py, tl, ul, alpha,
+                                                     total, g),
+                    "lattice_grad_kernel")
+    cells, cells1 = B * T * U, B * T * (U + 1)
+    # forward: px, py in, alpha and the totals out; backward: px, py,
+    # alpha in, both gradients out
+    nbytes = 4 * ((cells + 2 * cells1 + 3 * B) + (2 * cells + 3 * cells1
+                                                  + 4 * B))
+    last = int((tl.long() - 1 + ul.long().clamp(0, U)).max())
+    return {"forward_ms": fwd, "backward_ms": bwd,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "diagonals": T + U - 1, "last_diagonal": last,
+            "us_per_diagonal": (fwd + bwd) * 1e3 / (2 * max(last, 1))}
+
+
+def phase_lattice(card, report):
+    """Phase 21: kernel B3 against autograd through the plain loop at the
+    benchmark cell's bucket shapes and the edges, the prune ranges from
+    its occupancies, its times against the plain loop's."""
+    from speech2text_torch.ops import rnnt as rn
+    from speech2text_torch.tools.timing import events_ms
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    cases, ranges, timed = [], {}, {}
+    pruned = plain_ms = None
+    for B, T, U in LATTICE_SHAPES:
+        key = f"{B}x{T}x{U}"
+        px, py = lattice_arcs(rng, B, T, U)
+        tl, ul = lattice_lens(rng, B, T, U)
+        rec, occ, plain_occ = lattice_check(
+            f"occupancies {key}", px, py, tl, ul,
+            torch.ones(B, device="cuda"))
+        cases.append(rec)
+        ranges[key] = lattice_ranges(occ, plain_occ, tl, ul)
+        g = torch.from_numpy(rng.uniform(-2, 2, B).astype(np.float32)).cuda()
+        g[4] = 0.0
+        cases.append(lattice_check(f"gradients {key}", px, py, tl, ul,
+                                   g)[0])
+        timed[key] = lattice_timing(px, py, tl, ul)
+        if (B, T, U) != LATTICE_SHAPES[2]:
+            continue
+        pruned, band = lattice_pruned(rng, occ, tl, ul, g)
+        cases.append(band)
+        t0l, u0l = tl.clone(), ul.clone()
+        t0l[4:6] = 0
+        u0l[4], u0l[5] = 0, 3
+        cases.append(lattice_check(f"t_len 0 {key}", px, py, t0l, u0l,
+                                   g)[0])
+        cases.append(lattice_check(f"B=1 {key}", px[:1], py[:1], tl[:1],
+                                   ul[:1], g[:1])[0])
+
+        def plain_pair(px=px, py=py, tl=tl, ul=ul):
+            a, b = px.clone().requires_grad_(), py.clone().requires_grad_()
+            rn.lattice_forward_plain(a, b, tl, ul)[0].sum().backward()
+
+        plain_ms = {"shape": key,
+                    "forward_backward_ms": events_ms(plain_pair, iters=3,
+                                                     warmup=1)}
+    B, T, U = LATTICE_WIDE
+    px, py = lattice_arcs(rng, B, T, U)
+    tl = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    ul = torch.tensor([U, U // 2], dtype=torch.int32, device="cuda")
+    cases.append(lattice_check(f"wide {B}x{T}x{U}", px, py, tl, ul,
+                               torch.ones(B, device="cuda"))[0])
+    worst = {k: max(c[k] for c in cases) for k in (
+        "total_err", "grad_px_err", "grad_py_err", "grad_px_walk_err",
+        "grad_py_walk_err")}
+    share = sum(LATTICE_SHARES)
+    per_step = 2 * sum(w * (r["forward_ms"] + r["backward_ms"])
+                       for w, r in zip(LATTICE_SHARES, timed.values())) / share
+    bound = 2 * sum(w * r["bound_ms"]
+                    for w, r in zip(LATTICE_SHARES, timed.values())) / share
+    out = {"cases": cases, "worst": worst, "ranges": ranges,
+           "pruned": pruned, "timed": timed, "plain": plain_ms,
+           "device_ms_per_step": per_step, "bound_ms_per_step": bound,
+           "nan": sum(c["nan"] for c in cases),
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 21 (B3): {len(cases)} cases held, worst {worst}, no NaN; "
+        f"pruned loss {pruned}", card)
+    for key, r in ranges.items():
+        log(f"  ranges {key}: equal share {r['equal_share']:.6f}, "
+            f"differences {r['differences'][:20]}"
+            + (f" (+{len(r['differences']) - 20})"
+               if len(r["differences"]) > 20 else ""), card)
+    for key, r in timed.items():
+        log(f"  B3 {key}: forward {r['forward_ms']:.4f} ms, backward "
+            f"{r['backward_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"{r['last_diagonal']} of {r['diagonals']} diagonals, "
+            f"{r['us_per_diagonal']:.3f} us a diagonal", card)
+    log(f"  B3 per flagship step (2 pairs, epoch shares): {per_step:.4f} ms "
+        f"device, bound {bound:.4f} ms; plain loop {plain_ms}; phase "
+        f"{out['seconds']:.1f} s", card)
+    report["lattice"] = out
+    return out
+
+
 def main(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6331,6 +6628,7 @@ def main(argv):
     from speech2text_torch.ops import attn_weights as aw
     from speech2text_torch.ops import build
     from speech2text_torch.ops import fbank as fb
+    from speech2text_torch.ops import rnnt as rn
     from speech2text_torch.serve import serving_train_config
     from speech2text_torch.tools.timing import stack_shapes
 
@@ -6340,11 +6638,11 @@ def main(argv):
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    build.build([aw.KERNEL, fb.KERNEL])
-    aw.KERNEL.lib()
-    fb.KERNEL.lib()
+    build.build([aw.KERNEL, fb.KERNEL, rn.KERNEL])
+    for k in (aw.KERNEL, fb.KERNEL, rn.KERNEL):
+        k.lib()
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
-    for k in (aw.KERNEL, fb.KERNEL):
+    for k in (aw.KERNEL, fb.KERNEL, rn.KERNEL):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {k.name}: {line.strip()}")
@@ -6361,6 +6659,7 @@ def main(argv):
     serve_launches = phase_serve(layer_shapes, card, report)
     phase_train_f32(card, report)
     launches = phase_train_bf16(card, report)
+    lattice = phase_lattice(card, report)
     with tempfile.TemporaryDirectory(prefix="s2t_train_run_") as tmp:
         run_launches, run_per_step, run_err, run = phase_train_run(
             card, report, tmp)
@@ -6460,6 +6759,24 @@ def main(argv):
             assert path["launches"] > 0, \
                 f"{k['name']} never launched on a path"
             assert math.isfinite(path["ms"]) and path["ms"] > 0
+    assert launches["lattice"] == 4 * TRAIN_STEPS and \
+        launches["plain_lattice_trips"] == 0 and lattice["nan"] == 0, \
+        launches
+    kernels.append(dict(
+        name="lattice", route="cuda",
+        source="speech2text_torch/csrc/lattice.cu",
+        replaces="none: speech2text_tpu/ops/rnnt.py:lattice_forward's "
+                 "lax.scan",
+        launches=launches["lattice"], launches_per_step=4,
+        plain_lattice_trips=launches["plain_lattice_trips"],
+        library_ms=None, ms=lattice["device_ms_per_step"],
+        bound_ms=lattice["bound_ms_per_step"],
+        bound_by="the chain of T+U-1 diagonals",
+        plain_ms=lattice["plain"], worst=lattice["worst"],
+        ranges_equal_share=min(r["equal_share"]
+                               for r in lattice["ranges"].values()),
+        backward_route="cuda",
+        backward_source="speech2text_torch/csrc/lattice.cu"))
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

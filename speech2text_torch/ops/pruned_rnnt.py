@@ -5,13 +5,14 @@ speech2text_tpu/ops/pruned_rnnt.py): `rnnt_loss_smoothed`,
 All in f32. The simple loss's joint normaliser log Σ_v exp(am + lm) is a
 batched matmul of exponentials, not a (B,T,U,V) joint. The occupancies
 (px_grad, py_grad) are the gradient of the lattice's total with respect to
-its arcs: the forward takes them with one autograd pass over the lattice,
-and the simple loss's backward reuses them (`_SimpleLossWithGrads`).
-The pruned loss runs the same anti-diagonal lattice on the window arcs
-placed in (t, u), not the JAX package's walk over frames: the same values
-in a third of the steps (`rnnt_loss_pruned`). The label picks are
-gathers: their values and gradients are those of the JAX package's
-one-hot contractions.
+its arcs: the forward takes them from one forward and one backward of the
+lattice (`ops/rnnt.lattice_occupancies`: kernel B3 on the card), and the
+simple loss's backward reuses them (`_SimpleLossWithGrads`). The pruned
+loss runs the same anti-diagonal lattice (`ops/rnnt.lattice_forward`) on
+the window arcs placed in (t, u), not the JAX package's walk over frames:
+the same values in a third of the steps (`rnnt_loss_pruned`). The label
+picks are gathers: their values and gradients are those of the JAX
+package's one-hot contractions.
 
 The three steps are the spans "simple_loss", "prune_ranges" and
 "pruned_loss" (utils/tracing.py); with the recorder on, the pruned
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.tracing import backward_span, span
-from .rnnt import NEG_INF, lattice_forward
+from .rnnt import NEG_INF, lattice_forward, lattice_occupancies
 
 
 class _SimpleLossWithGrads(torch.autograd.Function):
@@ -36,14 +37,10 @@ class _SimpleLossWithGrads(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, px, py, t_lens, u_lens):
-        with torch.enable_grad():
-            px_ = px.detach().requires_grad_()
-            py_ = py.detach().requires_grad_()
-            total = lattice_forward(px_, py_, t_lens, u_lens)
-            occ_px, occ_py = torch.autograd.grad(total.sum(), (px_, py_))
+        total, occ_px, occ_py = lattice_occupancies(px, py, t_lens, u_lens)
         ctx.save_for_backward(occ_px, occ_py)
         ctx.mark_non_differentiable(occ_px, occ_py)
-        return -total.detach(), occ_px, occ_py
+        return -total, occ_px, occ_py
 
     @staticmethod
     def backward(ctx, g_nll, g_occ_px, g_occ_py):

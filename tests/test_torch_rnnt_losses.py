@@ -4,7 +4,12 @@ JAX package on the same numpy inputs.
 
 Tolerances: f32 values rtol 1e-5, gradients and occupancies rtol 1e-4
 (both with a small atol for entries near 0); prune ranges exactly equal.
+The lattice runs through its autograd.Function's CPU route (the plain
+forward loop and the plain walk back), which is also held against
+autograd through the plain loop.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -241,3 +246,183 @@ def test_joiner_forward_and_grads(prune_range, lm_scale):
     loss.backward()
     np.testing.assert_allclose(te.grad.numpy(), np.asarray(jg[0]), **GRAD)
     np.testing.assert_allclose(tpr.grad.numpy(), np.asarray(jg[1]), **GRAD)
+
+
+def _pruned_band(seed):
+    """The arcs `rnnt_loss_pruned` hands the lattice (window log-probs in
+    (t, u), NEG_INF off the windows), with its lengths."""
+    rng = np.random.default_rng(seed)
+    B, T, U, V, R = 5, 9, 6, 8, 3
+    t_lens, u_lens = _lens(rng, B, T, U)
+    occ = (_t(rng.uniform(0, 1, (B, T, U)).astype(np.float32)),
+           _t(rng.uniform(0, 1, (B, T, U + 1)).astype(np.float32)))
+    ranges = tp.get_rnnt_prune_ranges(*occ, _t(t_lens), _t(u_lens), R)
+    logits = _t(rng.standard_normal((B, T, R, V)).astype(np.float32))
+    sym = _t(rng.integers(1, V, (B, U)).astype(np.int32))
+    seen = []
+
+    def spy(px, py, tl, ul):
+        seen.append((px.numpy(), py.numpy()))
+        return tr.lattice_forward(px, py, tl, ul)
+
+    with mock.patch.object(tp, "lattice_forward", spy):
+        tp.rnnt_loss_pruned(logits, sym, ranges, _t(t_lens), _t(u_lens))
+    return (*seen[0], t_lens, u_lens)
+
+
+def _lattice_case(kind, seed):
+    if kind == "band":
+        return _pruned_band(seed)
+    rng = np.random.default_rng(seed)
+    B, T, U = 5, 9, 4
+    px = rng.standard_normal((B, T, U)).astype(np.float32) - 1.0
+    py = rng.standard_normal((B, T, U + 1)).astype(np.float32) - 1.0
+    return (px, py, *_lens(rng, B, T, U))
+
+
+@pytest.mark.parametrize("kind,seed", [("lens", 0), ("lens", 1),
+                                       ("band", 5), ("band", 6)])
+def test_lattice_backward_plain(kind, seed):
+    """The walk back (kernel B3's plain backward) against autograd through
+    the plain loop and against the JAX package's vjp, for an incoming
+    gradient with a 0: the same gradients where the utterance has a path,
+    0 where it has none or g = 0, no NaN."""
+    px, py, t_lens, u_lens = _lattice_case(kind, seed)
+    g = np.random.default_rng(seed + 10).uniform(
+        -2, 2, px.shape[0]).astype(np.float32)
+    g[2] = 0.0
+    args = (_t(t_lens), _t(u_lens))
+    total, alpha = tr.lattice_forward_plain(_t(px), _t(py), *args)
+    gpx, gpy = tr.lattice_backward_plain(_t(px), _t(py), *args, alpha,
+                                         total, _t(g))
+    tpx, tpy = _t(px, True), _t(py, True)
+    want, _ = tr.lattice_forward_plain(tpx, tpy, *args)
+    (want * _t(g)).sum().backward()
+    jtotal, vjp = jax.vjp(lambda a, b: jr.lattice_forward(a, b, t_lens,
+                                                          u_lens), px, py)
+    jpx, jpy = (np.asarray(a) for a in vjp(g))
+    path = total.numpy() > tr.NEG_INF / 2
+    assert path.sum() >= 3 and not (gpx.isnan().any() or gpy.isnan().any())
+    np.testing.assert_array_equal(total.numpy(), want.detach().numpy())
+    np.testing.assert_allclose(total.numpy()[path], np.asarray(jtotal)[path],
+                               **VAL)
+    for got, oracle, jax_grad in ((gpx, tpx.grad, jpx), (gpy, tpy.grad, jpy)):
+        got = got.numpy()
+        np.testing.assert_allclose(got[path], oracle.numpy()[path], **GRAD)
+        np.testing.assert_allclose(got[path], jax_grad[path], **GRAD)
+        assert (got[~path] == 0).all() and (got[2] == 0).all()
+
+
+def _old_occupancies(px, py, t_lens, u_lens):
+    """The simple loss's occupancies as autograd through the plain loop
+    gives them."""
+    with torch.enable_grad():
+        a, b = px.detach().requires_grad_(), py.detach().requires_grad_()
+        total, _ = tr.lattice_forward_plain(a, b, t_lens, u_lens)
+        return (total.detach(), *torch.autograd.grad(total.sum(), (a, b)))
+
+
+def _loss_run(loss):
+    """(value, gradients) of one loss on fixed inputs, through whatever
+    lattice the modules hold now."""
+    rng = np.random.default_rng(7)
+    B, T, U, V, C, R = 4, 8, 5, 6, 7, 3
+    t_lens, u_lens = _lens(rng, B, T, U)
+    sym = _t(rng.integers(1, V, (B, U)).astype(np.int32))
+    lens = (_t(t_lens), _t(u_lens))
+    if loss.startswith("rnnt"):
+        x = _t(rng.standard_normal((B, T, U + 1, V)).astype(np.float32), True)
+        clamp = 0.05 if loss == "rnnt_clamp" else -1.0
+        val = tr.rnnt_loss(x, sym, *lens, reduction="sum", clamp=clamp)
+        inputs = (x,)
+    elif loss == "smoothed":
+        lm, am, sym, t_lens, u_lens = _smoothed_inputs(8, B, T, U, C)
+        inputs = (_t(lm, True), _t(am, True))
+        val, _ = tp.rnnt_loss_smoothed(*inputs, _t(sym), _t(t_lens),
+                                       _t(u_lens), lm_only_scale=0.25,
+                                       am_only_scale=0.1)
+    else:
+        ranges = np.sort(rng.integers(0, U - 1, (B, T)), axis=1)
+        ranges[:, 0] = 0
+        occ = (_t(rng.uniform(0, 1, (B, T, U)).astype(np.float32)),
+               _t(rng.uniform(0, 1, (B, T, U + 1)).astype(np.float32)))
+        ranges = tp.get_rnnt_prune_ranges(*occ, *lens, R)
+        x = _t(rng.standard_normal((B, T, R, V)).astype(np.float32), True)
+        val = tp.rnnt_loss_pruned(x, sym, ranges, *lens)
+        inputs = (x,)
+    val.backward()
+    return val.detach().numpy(), [t.grad.numpy() for t in inputs]
+
+
+@pytest.mark.parametrize("loss", ["rnnt", "rnnt_clamp", "smoothed",
+                                  "pruned"])
+def test_lattice_function_cpu_route_keeps_values(loss):
+    """The losses on the CPU through the lattice Function (plain forward,
+    plain walk back) give the values and gradients they gave through
+    autograd over the loop."""
+    got, got_grads = _loss_run(loss)
+    old = lambda px, py, tl, ul: tr.lattice_forward_plain(px, py, tl, ul)[0]
+    with mock.patch.object(tr, "lattice_forward", old), \
+            mock.patch.object(tp, "lattice_forward", old), \
+            mock.patch.object(tp, "lattice_occupancies", _old_occupancies):
+        want, want_grads = _loss_run(loss)
+    np.testing.assert_allclose(got, want, **VAL)
+    for g, w in zip(got_grads, want_grads):
+        np.testing.assert_allclose(g, w, **GRAD)
+
+
+def test_pruned_loss_infeasible_utterance():
+    """An utterance whose labels do not fit its pruned lattice (more labels
+    than frames at R = 2, so its last window cannot hold u_len) gives loss
+    0 and gradient 0, the others the JAX package's values, and no NaN.
+    (The JAX package reads that utterance's total at a clipped window
+    position instead, so its value is not compared.)"""
+    rng = np.random.default_rng(9)
+    B, T, U, V, R = 3, 4, 6, 5, 2
+    t_lens = np.array([4, 4, 3], np.int32)
+    u_lens = np.array([6, 3, 2], np.int32)
+    occ = (rng.uniform(0, 1, (B, T, U)).astype(np.float32),
+           rng.uniform(0, 1, (B, T, U + 1)).astype(np.float32))
+    ranges = np.asarray(jp.get_rnnt_prune_ranges(*occ, t_lens, u_lens,
+                                                 s_range=R))
+    logits = rng.standard_normal((B, T, R, V)).astype(np.float32)
+    sym = rng.integers(1, V, (B, U)).astype(np.int32)
+    want = np.asarray(jp.rnnt_loss_pruned(logits, sym, ranges, t_lens,
+                                          u_lens, reduction="none"))
+    tl = _t(logits, True)
+    nll = tp.rnnt_loss_pruned(tl, _t(sym), _t(ranges), _t(t_lens),
+                              _t(u_lens), reduction="none")
+    nll.sum().backward()
+    assert nll[0].item() == 0.0
+    np.testing.assert_allclose(nll.detach().numpy()[1:], want[1:], **VAL)
+    assert (tl.grad[0] == 0).all() and not tl.grad.isnan().any()
+    assert (tl.grad[1:] != 0).any()
+
+
+@pytest.mark.parametrize("case,match", [
+    ("shape", "not \\(B,T,U\\)"), ("lens", "lengths"), ("dtype", "f32"),
+    ("float_lens", "integers"), ("width", "U\\+1"), ("device", "CUDA")])
+def test_lattice_cuda_wrapper_checks(case, match):
+    """Kernel B3's wrappers refuse operands it does not take before any
+    build or launch (no card needed)."""
+    B, T, U = 2, 5, 3
+    px, py = torch.zeros(B, T, U), torch.zeros(B, T, U + 1)
+    tl, ul = torch.tensor([5, 3]), torch.tensor([3, 1])
+    if case == "shape":
+        py = torch.zeros(B, T, U)
+    elif case == "lens":
+        tl = torch.tensor([5])
+    elif case == "dtype":
+        px, py = px.double(), py.double()
+    elif case == "float_lens":
+        ul = ul.float()
+    elif case == "width":
+        px, py = torch.zeros(1, 1, tr.MAX_U1), torch.zeros(1, 1, tr.MAX_U1 + 1)
+        tl, ul = torch.tensor([1]), torch.tensor([1])
+    launches = tr.KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        tr.lattice_forward_cuda(px, py, tl, ul)
+    with pytest.raises(ValueError, match=match):
+        tr.lattice_backward_cuda(px, py, tl, ul, py, px[:, 0, 0],
+                                 px[:, 0, 0])
+    assert tr.KERNEL.launches == launches and tr.KERNEL._lib is None
