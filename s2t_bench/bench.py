@@ -1,6 +1,12 @@
 """One run of one cell: set-up, the measured window, the per-layer
 readings, and the check that decides `correct`.
 
+Before set-up, and before any work on the card, the run finds what the
+cell's configuration file names (cell.py): its reference module, which
+has to take the configuration (`check_config`), its counts module, and
+the check limits `checks/<cell>.json`; a piece that is not there raises
+cell.Missing.
+
 Set-up (counted in setup_s from the process's start): torch and the
 port imported, kernels built or loaded, the task, Trainer, weights and
 optimizer made, the noise clips made on the device, then the checked
@@ -44,7 +50,6 @@ from .check import (CHECKED_STEPS, NUMBERS, checked_steps, compare,
                     limits_of, verdict)
 from .guard import jax_modules
 from .program import Program
-from .reference.step import ReferenceTrainer
 from .spans import Interval, SpanClock
 from .trace import Trace, read_trace
 from .weights import write_weights
@@ -189,6 +194,9 @@ def set_precision(meta: Dict[str, Any]) -> None:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float) -> Dict[str, Any]:
+    reference = cell.reference()
+    cell.part("counts")
+    limits = limits_of(cell.name)
     set_precision(cell.meta)
     SpanClock.install()
     cfg = cell.train_config
@@ -317,8 +325,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     result["device"] = dev
 
     t_ref = time.perf_counter()
-    ref = ReferenceTrainer(cfg, seed, device,
-                           lambda m: write_weights(m, seed))
+    ref = reference.ReferenceTrainer(cfg, seed, device,
+                                     lambda m: write_weights(m, seed))
     want = checked_steps(ref.model, ref.train_step,
                          lambda i: batch_of(i, first[i]), "loss")
     del ref
@@ -326,7 +334,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     print(f"reference: {time.perf_counter() - t_ref:.1f} s",
           file=sys.stderr)
     numbers = compare(got, want)
-    limits = limits_of(cell.name)
     result["correct"] = verdict(numbers, limits) and failed == 0
     print(f"losses program {got.losses} reference {want.losses}",
           file=sys.stderr)

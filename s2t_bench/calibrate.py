@@ -11,7 +11,10 @@ precision lower in the program's place (check.lower_precision), and
 `half_batch` the reference fed the first half of each batch's rows, the
 mean taken over them. (A step that leaves its state unchanged reads
 change_gap 1 by the measure itself.) One JSON line per seed and kind
-goes to standard output and to FILE.
+goes to standard output and to FILE. The reference is the module that
+the cell's configuration file names (cell.Cell.reference), found and
+given the configuration before any work on the card; the cell needs no
+check limits yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ from .bench import set_precision
 from .cell import load_cell
 from .check import CHECKED_STEPS, checked_steps, compare, lower_precision
 from .program import Program
-from .reference.step import ReferenceTrainer
 from .weights import write_weights
 from .workload import NoisePool, Traffic, make_batch
 
@@ -51,8 +53,8 @@ def readings(cell, seed: int, kind: str, device: torch.device,
     else:
         feed = (lambda i: half(batch_of(i))) if kind == "half_batch" \
             else batch_of
-        ref = ReferenceTrainer(cfg, seed, device,
-                               lambda m: write_weights(m, seed))
+        ref = cell.part("reference").ReferenceTrainer(
+            cfg, seed, device, lambda m: write_weights(m, seed))
         if kind == "control":
             with lower_precision(device):
                 got = checked_steps(ref.model, ref.train_step, feed, "loss")
@@ -76,6 +78,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = torch.device("cuda", 0)
     cell = load_cell(args.workload)
+    cell.reference()
     set_precision(cell.meta)
     sampler = cell.train_config["dataset"]["bucket_sampler_config"]
     traffic = Traffic(cell.traffic, cell.traffic_spec, sampler)

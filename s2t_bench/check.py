@@ -39,6 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .cell import Missing, shown
+
 CHECKS_DIR = Path(__file__).resolve().parent / "checks"
 CHECKED_STEPS = 3
 NUMBERS = ("loss_gap", "grad_gap", "change_gap")
@@ -98,7 +100,11 @@ def compare(program: Readings, reference: Readings) -> Dict[str, float]:
 
 
 def limits_of(cell: str) -> Dict[str, float]:
-    with open(CHECKS_DIR / f"{cell}.json") as f:
+    """The limits of `cell`'s numbers: checks/<cell>.json, or Missing."""
+    path = CHECKS_DIR / f"{cell}.json"
+    if not path.is_file():
+        raise Missing(f"{cell}: no check limits {shown(path)}")
+    with open(path) as f:
         spec = json.load(f)
     return {k: float(spec["limits"][k]) for k in NUMBERS}
 

@@ -1,7 +1,14 @@
 """Operation and byte counts of the training step, from a training
 config and a batch's shapes alone (no program code): the model FLOPs of
-a step (`step_flops`), the least time of kernels B1 and B2 on a card
+a step (`zipformer.step_flops`), the least time of kernels B1 and B2 on a card
 (`kernels.py`), and the card's published peaks (`peaks.py`).
+
+What depends on the model lies in a counts module of its own,
+counts/<name>.py, that a configuration file names under "counts"
+(cell.PARTS): `step_flops(config, batch, pcm_len, label_len)`, the model
+FLOPs of one training step, and `b2_calls(config, batch, pcm_len,
+noise_len)`, the (B, N) of each kernel B2 call of its featurize. A
+metric's reader reaches it as `r.cell.part("counts")`.
 
 FLOPs count the matrix products and convolutions of the forward pass at
 2 per multiply-add, over the padded batch, with every attention product
@@ -11,21 +18,3 @@ are not counted. Training takes 3× the forward of the trained modules
 (the backward's two products per forward product). Recompute is not
 counted.
 """
-
-from __future__ import annotations
-
-from typing import Any, Dict
-
-from . import zipformer
-
-
-def step_flops(config: Dict[str, Any], batch: int, pcm_len: int,
-               label_len: int) -> float:
-    """Model FLOPs of one training step of `config` (a training config
-    tree) on a batch of (batch, pcm_len) samples and label_len labels."""
-    task = config["task"]["type"]
-    enc = config["encoder"]
-    if task == "Pruned_Rnnt" and enc["model"] == "Zipformer":
-        return 3.0 * zipformer.rnnt_forward_flops(config, batch, pcm_len,
-                                                  label_len)
-    raise ValueError(f"no FLOP count for task {task} with {enc['model']}")

@@ -1,7 +1,8 @@
 """Forward FLOPs of the Zipformer2 pruned RNN-T model (Yao et al.,
 arXiv:2310.11230): the convolutional embed, six stacks of layers at
 their own frame rates, the stateless predictor, the joiner and the
-simple loss's product."""
+simple loss's product. The counts module of the configurations that
+name "zipformer" (counts/__init__.py): `step_flops` and `b2_calls`."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import math
 from typing import Any, Dict, List
 
 from .frames import fbank_frames
+from .kernels import b2_calls  # noqa: F401  (the flagship's featurize)
 
 EMBED_CHANNELS = 32
 
@@ -92,3 +94,13 @@ def rnnt_forward_flops(config: Dict[str, Any], batch: int, pcm_len: int,
         inner = j.get("inner_dim", 256)
         per_utt += T * r * 2 * 2 * V * inner
     return batch * per_utt
+
+
+def step_flops(config: Dict[str, Any], batch: int, pcm_len: int,
+               label_len: int) -> float:
+    """Model FLOPs of one training step: 3× the forward."""
+    task = config["task"]["type"]
+    enc = config["encoder"]
+    if task == "Pruned_Rnnt" and enc["model"] == "Zipformer":
+        return 3.0 * rnnt_forward_flops(config, batch, pcm_len, label_len)
+    raise ValueError(f"no FLOP count for task {task} with {enc['model']}")

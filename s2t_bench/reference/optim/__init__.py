@@ -3,6 +3,6 @@ Eden."""
 
 from .scaled_adam import ScaledAdam
 from .schedules import EdenSchedule
-from .setup import OptimSetup
+from .setup import OptimSetup, optim_settings
 
-__all__ = ["EdenSchedule", "OptimSetup", "ScaledAdam"]
+__all__ = ["EdenSchedule", "OptimSetup", "ScaledAdam", "optim_settings"]

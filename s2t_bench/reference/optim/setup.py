@@ -17,6 +17,15 @@ def OptimSetup(config: Dict[str, Any], params: Iterable[torch.Tensor]
                ) -> Tuple[ScaledAdam, Callable[[int], float]]:
     """config = the `optim_setup` section → (optimizer over the `params`
     that take gradients, schedule)."""
+    kw, schedule = optim_settings(config)
+    opt = ScaledAdam([p for p in params if p.requires_grad], schedule, **kw)
+    return opt, schedule
+
+
+def optim_settings(config: Dict[str, Any]
+                   ) -> Tuple[Dict[str, Any], EdenSchedule]:
+    """The ScaledAdam keywords and the Eden schedule of an `optim_setup`
+    section, with no tensor made."""
     if (config.get("seperate_lr") or {}).get("apply"):
         raise ValueError("the reference has one parameter group only")
     opt_cfg = config["optimizer"]
@@ -33,11 +42,8 @@ def OptimSetup(config: Dict[str, Any], params: Iterable[torch.Tensor]
                             lr_epochs=c.get("lr_epochs", 6.0),
                             steps_per_epoch=c.get("steps_per_epoch", 10000),
                             warmup_batches=c.get("warmup_batches", 500.0))
-    opt = ScaledAdam(
-        [p for p in params if p.requires_grad], schedule,
-        betas=tuple(kw.get("betas", (0.9, 0.98))),
-        clipping_scale=kw.get("clipping_scale", 2.0),
-        param_min_rms=kw.get("param_min_rms", 1e-5),
-        param_max_rms=kw.get("param_max_rms", 3.0),
-        scalar_lr_scale=kw.get("scalar_lr_scale", 0.1))
-    return opt, schedule
+    return dict(betas=tuple(kw.get("betas", (0.9, 0.98))),
+                clipping_scale=kw.get("clipping_scale", 2.0),
+                param_min_rms=kw.get("param_min_rms", 1e-5),
+                param_max_rms=kw.get("param_max_rms", 3.0),
+                scalar_lr_scale=kw.get("scalar_lr_scale", 0.1)), schedule

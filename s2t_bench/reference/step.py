@@ -8,11 +8,16 @@ generators) with one process, no accumulation, no global-norm clip
 (ScaledAdam clips by itself) and no kernels: every module here runs its
 plain version. What the flagship's config does not use (CTC, other
 encoders, heads and predictors, CMVN statistics, dither) raises.
-`ReferenceTrainer(config, seed, device)` builds the model and the
-optimizer of a training config; `train_step(batch, step)` takes the step
-the port's Trainer takes on the same device batch, drawing the
+`ReferenceTrainer(config, seed, device, write_weights)` builds the model
+and the optimizer of a training config; `train_step(batch, step)` takes
+the step the port's Trainer takes on the same device batch, drawing the
 augmentation, dropout and chunk from generators seeded as the Trainer
-seeds them.
+seeds them. `check_config(config)` raises where ReferenceTrainer would;
+`check_traffic(config, traffic)` where a mix's labels lie outside the
+model's vocabulary.
+The reference of the configurations that name "step"; another reference
+may import `Featurizer`, `take_step`, `step_seed` and the STREAM_*
+constants from here.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from .models.joiner import Joiner, JoinerConfig
 from .models.layers import init_parameters
 from .models.predictor import StatelessPredictor, StatelessPredictorConfig
 from .models.zipformer import Zipformer2, Zipformer2Config
-from .optim import OptimSetup
+from .optim import OptimSetup, optim_settings
 
 STREAM_AUGMENT, STREAM_DROPOUT, STREAM_CHUNK = 0, 1, 2
 Batch = Dict[str, Any]
@@ -223,6 +228,38 @@ class RnntTask(Featurizer):
         return losses
 
 
+def _check_task(config: Dict[str, Any]) -> None:
+    task = config["task"]["type"]
+    if task != "Pruned_Rnnt":
+        raise ValueError(f"the reference trains the pruned RNN-T only, "
+                         f"not the task {task}")
+
+
+def check_config(config: Dict[str, Any]) -> None:
+    """Raise where `ReferenceTrainer(config, ...)` would, without its
+    memory or its time: the task built on the meta device, the
+    optimizer's settings read. (Computing on the meta device, as
+    ScaledAdam's set-up would, imports torch._dynamo: seconds.)"""
+    _check_task(config)
+    with torch.device("meta"):
+        RnntTask(config)
+    optim_settings(config["optim_setup"])
+
+
+def check_traffic(config: Dict[str, Any], traffic: Dict[str, Any]) -> None:
+    """Raise unless the token ids that the traffic mix draws lie in the
+    vocabulary of the predictor and the joiner, blank (0) left out."""
+    lo, hi = traffic["vocab"]
+    vocab = config["joiner"]["output_dim"]
+    symbols = config["predictor"]["config"]["num_symbols"]
+    if symbols != vocab:
+        raise ValueError(f"the predictor has {symbols} symbols, the "
+                         f"joiner {vocab} outputs")
+    if not 1 <= lo <= hi < vocab:
+        raise ValueError(f"token ids [{lo}, {hi}] do not lie in [1, "
+                         f"{vocab - 1}]")
+
+
 class ReferenceTrainer:
     """The model, optimizer and step generators of one training config on
     one device; `write_weights(model)` writes the caller's weights before
@@ -231,8 +268,7 @@ class ReferenceTrainer:
     def __init__(self, config: Dict[str, Any], seed: int,
                  device: torch.device,
                  write_weights: Callable[[nn.Module], Any]):
-        if config["task"]["type"] != "Pruned_Rnnt":
-            raise ValueError("the reference trains the pruned RNN-T only")
+        _check_task(config)
         self.task = RnntTask(config)
         # the constant leaves (biases, norms, bypass scales) as the port
         # sets them; the caller writes every other leaf

@@ -1,11 +1,13 @@
 """BENCHMARK.json keeps to the contract's form, and every name in it
 finds its file: configuration, traffic mix, check limits, metric
-reader."""
+reader, and the reference and counts modules that a configuration
+names. Nothing here knows a model: what is the model's is asked of the
+modules its configuration names."""
 
 import json
 import re
 
-from s2t_bench.cell import PACKAGE, ROOT
+from s2t_bench.cell import PACKAGE, ROOT, load_cell
 from s2t_bench.tests.tiny import benchmark
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -100,13 +102,22 @@ def test_every_cell_reports_enough():
 
 
 def test_labels_lie_in_the_vocabulary():
-    """Each cell's mix draws token ids that its model's predictor and
-    joiner have, blank (0) excluded."""
+    """Each cell's mix draws token ids that its model takes, as the
+    reference module that its configuration names judges them
+    (`check_traffic`: for the flagship, ids in the predictor's and the
+    joiner's vocabulary, blank (0) excluded)."""
     for w in benchmark()["workloads"]:
-        cfg = json.loads((PACKAGE / "configs" / f"{w['config']}.json")
-                         .read_text())["train_config"]
-        lo, hi = json.loads((PACKAGE / "traffic" / f"{w['traffic']}.json")
-                            .read_text())["vocab"]
-        vocab = cfg["joiner"]["output_dim"]
-        assert cfg["predictor"]["config"]["num_symbols"] == vocab
-        assert 1 <= lo <= hi < vocab
+        cell = load_cell(w["name"], ROOT / "BENCHMARK.json")
+        cell.part("reference").check_traffic(cell.train_config,
+                                             cell.traffic_spec)
+
+
+def test_every_configuration_names_its_modules():
+    """Each cell's configuration names a reference module that takes it
+    and its mix, and a counts module, as a run finds them before set-up."""
+    for w in benchmark()["workloads"]:
+        cell = load_cell(w["name"], ROOT / "BENCHMARK.json")
+        assert cell.reference().__name__ == \
+            f"s2t_bench.reference.{cell.meta['reference']}"
+        assert cell.part("counts").__name__ == \
+            f"s2t_bench.counts.{cell.meta['counts']}"

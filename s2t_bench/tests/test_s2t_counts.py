@@ -5,7 +5,7 @@ import json
 import pytest
 
 from s2t_bench.cell import PACKAGE
-from s2t_bench.counts import step_flops, zipformer
+from s2t_bench.counts import zipformer
 from s2t_bench.counts.frames import fbank_frames
 from s2t_bench.counts.kernels import (b1_calls, b1_least_s, b2_calls,
                                       b2_least_s)
@@ -59,7 +59,7 @@ def test_zipformer_embed_by_hand():
 def test_step_flops_is_three_forwards():
     z = json.load(open(PACKAGE / "configs" / "zipformer_prnnt.json"))
     cfg = z["train_config"]
-    assert step_flops(cfg, 4, 48000, 16) == \
+    assert zipformer.step_flops(cfg, 4, 48000, 16) == \
         3 * zipformer.rnnt_forward_flops(cfg, 4, 48000, 16)
     # the simple loss's product grows with the vocabulary: 2·T·(U+1)·V
     small = json.loads(json.dumps(cfg))

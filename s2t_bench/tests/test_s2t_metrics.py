@@ -91,7 +91,7 @@ def test_silent_without_a_trace():
 
 def test_mfu_counts_every_untraced_step():
     cell = load_cell(ZIP)
-    from s2t_bench.counts import step_flops
+    from s2t_bench.counts.zipformer import step_flops
     w = window(cell, None, steps=3)
     w.traced.steps = w.traced.steps[:1]
     flops = 3 * step_flops(cell.train_config, 4, 48000, 16)

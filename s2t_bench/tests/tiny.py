@@ -22,7 +22,11 @@ TINY_TRAFFIC = {
 
 
 def tiny_cell(name: str) -> Cell:
-    cell = load_cell(name)
+    return tiny(load_cell(name))
+
+
+def tiny(cell: Cell) -> Cell:
+    """`cell` with every width and length cut (the flagship's model)."""
     cell.meta = copy.deepcopy(cell.meta)
     cfg = cell.meta["train_config"]
     cfg["dataset"]["bucket_sampler_config"].update(
