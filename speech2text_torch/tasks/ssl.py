@@ -18,6 +18,13 @@ takes it from its own generator seeded 0 on every batch (ROADMAP §C,
 reference caveat 7). A checkpoint's encoder tensors carry over by name to
 a CTC task through `finetune.base_model` (build_task.py); `logits_layer`
 does not.
+
+The step's phases are spans (utils/tracing.py): "featurize" twice (the
+raw and the augmented view, tasks/base.py), "ssl_targets" (the labels,
+the span mask and the noise), "encoder" (inside it one "mhsa" per
+Conformer block), "ssl_head" twice (the logits layer, then the masked
+CE and the accuracy), then the training step's "backward" and
+"optimizer" (train/step.py).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..models.best_rq import BestRQConfig, BestRQLayer, Draws, \
 from ..models.factories import EncoderFactory
 from ..models.layers import Dense, init_parameters
 from ..parallel import global_count
+from ..utils.tracing import span
 from .base import AsrTaskBase, Batch
 
 EVAL_MASK_SEED = 0
@@ -65,9 +73,11 @@ class SslModel(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """feats → (logits (n, B, T', K) f32, output lengths)."""
-        enc, enc_lens = self.encoder(feats, feat_lens, training=training,
-                                     generator=generator)
-        return self.logits(enc), enc_lens
+        with span("encoder"):
+            enc, enc_lens = self.encoder(feats, feat_lens, training=training,
+                                         generator=generator)
+        with span("ssl_head"):
+            return self.logits(enc), enc_lens
 
 
 class SslTask(AsrTaskBase):
@@ -128,8 +138,9 @@ class SslTask(AsrTaskBase):
         raw, feat_lens = self.featurize(batch, training=False)
         auged, _ = self.featurize(batch, generator, training=True,
                                   draws=draws.get("augment"))
-        masked, labels, mask2, lens2 = self.best_rq(
-            raw, auged, feat_lens, generator, draws.get("mask"))
+        with span("ssl_targets"):
+            masked, labels, mask2, lens2 = self.best_rq(
+                raw, auged, feat_lens, generator, draws.get("mask"))
         return masked, feat_lens, labels, mask2, lens2
 
     def step_losses(self, batch: Batch, step: int,
@@ -150,8 +161,9 @@ class SslTask(AsrTaskBase):
         frames)} of the masked inputs, dropout drawn from `generator`."""
         logits, enc_lens = self.model(masked, feat_lens, training=True,
                                       generator=generator)
-        out = self.losses(logits, enc_lens, labels, mask2, lens2,
-                          self.loss_selection == "mask_loss")
+        with span("ssl_head"):
+            out = self.losses(logits, enc_lens, labels, mask2, lens2,
+                              self.loss_selection == "mask_loss")
         out["frames"] = enc_lens.sum()
         return out
 
@@ -165,8 +177,9 @@ class SslTask(AsrTaskBase):
         gen = None
         if draws is None:
             gen = torch.Generator(raw.device).manual_seed(EVAL_MASK_SEED)
-        masked, labels, mask2, lens2 = self.best_rq(raw, raw, feat_lens,
-                                                    gen, draws)
+        with span("ssl_targets"):
+            masked, labels, mask2, lens2 = self.best_rq(raw, raw, feat_lens,
+                                                        gen, draws)
         logits, enc_lens = self.model(masked, feat_lens)
         out = self.losses(logits, enc_lens, labels, mask2, lens2, True)
         return {"val_loss": out["loss"], "acc": out["acc"]}

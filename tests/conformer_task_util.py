@@ -6,11 +6,14 @@ a synthetic corpus with its subword model, the training configs of a
 tiny CTC, a tiny pruned RNN-T + CTC, a tiny RNN-T, a tiny CTC + RNN-T
 hybrid Conformer (LSTM predictor, full lattice), a tiny CIF, a tiny
 BEST-RQ SSL and a tiny RNN-LM on it, and the build_task overrides that
-shrink a Conformer YAML to those dims."""
+shrink a Conformer YAML to those dims; conformer_bestrq_xl.yaml cut to
+tiny widths with no manifests (tests/test_torch_conformer_bestrq.py,
+tests/test_torch_tracing.py)."""
 
 import json
 import os
 
+from speech2text_torch.config import load_config
 from speech2text_torch.data.manifest import iter_text, load_manifest
 from speech2text_torch.data.spm import train_unigram
 from speech2text_torch.data.tokenizer import TokenizerSetup
@@ -192,6 +195,34 @@ def lm_config(corpus, workdir):
                                              "save_top_k": 2},
                       "global_cmvn": {"apply": False}},
     }
+
+
+BESTRQ_YAML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "training",
+    "conformer_bestrq_xl.yaml")
+
+
+def bestrq_config(clip=5.0):
+    """conformer_bestrq_xl.yaml with no manifests and no speed
+    perturbation: 2 blocks of width 64, 4 heads, 2 codebooks of 32 × 8,
+    spans of 2 label frames, in f32, the full lr from the first step
+    (Warmup of 1 step), global-norm clip `clip`."""
+    cfg = load_config(BESTRQ_YAML)
+    ds = cfg["dataset"]
+    for key in ("train_data", "eval_data", "noise_data", "base_dir"):
+        ds.pop(key)
+    ds["data_aug_config"]["use_speed_perturb"] = False
+    ds["bucket_sampler_config"].update(
+        {"num_bucket": 2, "volume_threshold": 4.0, "min_batch_size": 2})
+    cfg["encoder"]["config"].update(
+        {"input_dim": 64, "num_heads": 4, "ffn_dim": 128, "num_layers": 2,
+         "output_dim": 64, "dtype": "float32"})
+    cfg["ssl"]["best_rq"].update(
+        {"num_codebooks": 2, "codebook_size": 32, "codebook_dim": 8})
+    cfg["ssl"]["best_rq"]["masking"]["mean_span_length"] = 2
+    cfg["optim_setup"]["lr_scheduler"]["config"]["warmup_steps"] = 1
+    cfg["trainer"]["gradient_clip_val"] = clip
+    return cfg
 
 
 def tiny_recipe_argv(yaml_path, corpus, export_path, steps=2):

@@ -199,3 +199,46 @@ def test_recorder_threads_and_take():
     assert recs["a"].thread == recs["b"].thread != recs["c"].thread
     assert recs["a"].start_ns <= recs["b"].start_ns <= recs["b"].end_ns \
         <= recs["a"].end_ns
+
+
+def test_ssl_step_spans():
+    """One SSL step (conformer_bestrq_xl.yaml at tiny widths: 2 blocks of
+    relative attention) with the recorder on: the two featurizes, the
+    targets, the encoder with one `mhsa` per block inside it, the head
+    twice (logits, then the loss), the backward and the optimizer."""
+    from conformer_task_util import bestrq_config
+    from speech2text_torch.optim import OptimSetup
+    from speech2text_torch.tasks.factory import TaskFactory
+    cfg = bestrq_config()
+    task = TaskFactory("SSL")(cfg)
+    task.init_weights(torch.Generator().manual_seed(0))
+    optimizer, _ = OptimSetup(cfg["optim_setup"],
+                              task.model.named_parameters())
+    g = torch.Generator().manual_seed(1)
+    batch = {"pcm": torch.randint(-3000, 3000, (2, 16000), generator=g,
+                                  dtype=torch.int16),
+             "pcm_length": torch.tensor([16000, 12000], dtype=torch.int32),
+             "noise_pcm": torch.randint(-3000, 3000, (2, 8000), generator=g,
+                                        dtype=torch.int16),
+             "noise_length": torch.tensor([8000, 6000], dtype=torch.int32)}
+    gens = (torch.Generator().manual_seed(2), torch.Generator().manual_seed(3))
+    tracing.take()
+    tracing.enable()
+    try:
+        take_step(task.model, task.step_losses(batch, 0, gens), optimizer,
+                  5.0)
+    finally:
+        tracing.disable()
+    recs = tracing.take()
+    names = [r.name for r in recs]
+    want = {"featurize": 2, "ssl_targets": 1, "encoder": 1, "mhsa": 2,
+            "ssl_head": 2, "backward": 1, "optimizer": 1}
+    assert {n: names.count(n) for n in set(names)} == want
+    (enc,) = [r for r in recs if r.name == "encoder"]
+    for r in recs:
+        assert r.parent == ("encoder" if r.name == "mhsa" else None), r
+        if r.name == "mhsa":
+            assert enc.start_ns <= r.start_ns <= r.end_ns <= enc.end_ns
+    order = [n for n in names if n != "mhsa"]
+    assert order == ["featurize", "featurize", "ssl_targets", "encoder",
+                     "ssl_head", "ssl_head", "backward", "optimizer"]
